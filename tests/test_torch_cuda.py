@@ -1,0 +1,139 @@
+"""The CUDA LML kernels against their plain version, on an NVIDIA card.
+
+Skipped where torch sees no CUDA device (the CPU test run); on a machine
+with a card run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
+(``tests/conftest.py`` imports jax, which the port does not need).  Inputs
+are depth-5 heaps that together hold all 8 node types, with well-conditioned
+covariances, so the float32 tolerances of the JAX package's fused-kernel
+tests apply directly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nowcastautogp_tpu_torch.models import structures as st
+from nowcastautogp_tpu_torch.ops import lml, megalml
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+VAL_RTOL, VAL_ATOL = 2e-4, 2e-3
+GRAD_RTOL, GRAD_ATOL = 3e-3, 3e-3
+
+_TREES = [
+    {0: st.CONST}, {0: st.SE}, {0: st.LINEAR}, {0: st.GE}, {0: st.PERIODIC},
+    {0: st.PLUS, 1: st.SE, 2: st.PERIODIC},
+    {0: st.TIMES, 1: st.LINEAR, 2: st.GE},
+    {0: st.CP, 1: st.SE, 2: st.CONST},
+    {0: st.CP, 1: st.PLUS, 2: st.TIMES, 3: st.GE, 4: st.TIMES, 5: st.SE,
+     6: st.CONST, 9: st.PERIODIC, 10: st.LINEAR},
+]
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _batch(dev, n=96, n_active=80, seed=0):
+    rng = np.random.default_rng(seed)
+    P = len(_TREES)
+    types = np.zeros((P, 31), np.int32)
+    for i, tree in enumerate(_TREES):
+        for slot, t in tree.items():
+            types[i, slot] = t
+    params = rng.normal(0.0, 0.5, (P, 31, 3)).astype(np.float32)
+    params[types == 0] = 0.0
+    mask = np.broadcast_to((np.arange(n) < n_active).astype(np.float32),
+                           (P, n))
+    diagv = mask * (np.exp(rng.normal(-2.0, 0.3, (P, 1))) + 1e-5) + (1 - mask)
+    x = np.broadcast_to(np.linspace(0, 1, n), (P, n))
+    ym = rng.normal(0.0, 1.0, (P, n)) * mask
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    return t(types, torch.int32), t(params), t(diagv), t(mask), t(x), t(ym)
+
+
+def _plain(args):
+    types, params, diagv, mask, x, ym = args
+    p, d, y = (a.clone().requires_grad_(True) for a in (params, diagv, ym))
+    core = megalml.lml_core_plain(types, p, d, mask, x, y)
+    gp, gd, gy = torch.autograd.grad(core.sum(), (p, d, y))
+    return core.detach(), gp, gd, -gy
+
+
+def test_value_kernel_matches_plain(dev):
+    args = _batch(dev)
+    got = megalml.megalml_val(*args)
+    ref = _plain(args)[0]
+    torch.testing.assert_close(got, ref, rtol=VAL_RTOL, atol=VAL_ATOL)
+
+
+def test_gradient_kernel_value_is_bitwise_value_kernel(dev):
+    args = _batch(dev)
+    a = megalml.megalml_val(*args)
+    b = megalml.megalml_vag(*args)[0]
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_gradient_kernel_matches_autograd_of_plain(dev):
+    args = _batch(dev)
+    _, dp, gd, al = megalml.megalml_vag(*args)
+    _, rdp, rgd, ral = _plain(args)
+    for got, ref in ((dp, rdp), (gd, rgd), (al, ral)):
+        torch.testing.assert_close(got, ref, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_autograd_function_picks_the_kernel(dev):
+    types, params, diagv, mask, x, ym = _batch(dev)
+    log_noise = torch.full((types.shape[0],), -2.0, device=dev)
+    megalml.reset_launch_counts()
+    with torch.no_grad():
+        lml.gp_lml_batched(types, params, log_noise, x, ym, mask)
+    assert (megalml.K1_LAUNCHES, megalml.K2_LAUNCHES) == (0, 1)
+    p = params.clone().requires_grad_(True)
+    ln = log_noise.clone().requires_grad_(True)
+    out = lml.gp_lml_batched(types, p, ln, x, ym, mask)
+    out.sum().backward()
+    assert (megalml.K1_LAUNCHES, megalml.K2_LAUNCHES) == (1, 1)
+    p_ref = params.clone().requires_grad_(True)
+    ln_ref = log_noise.clone().requires_grad_(True)
+    ref = lml.gp_lml_batched(types.cpu(), p_ref.cpu(), ln_ref.cpu(), x.cpu(),
+                             ym.cpu(), mask.cpu())
+    ref.sum().backward()
+    torch.testing.assert_close(out.detach().cpu(), ref.detach(),
+                               rtol=VAL_RTOL, atol=VAL_ATOL)
+    # the CPU reference's gradients land on its CUDA leaves
+    torch.testing.assert_close(p.grad, p_ref.grad, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+    torch.testing.assert_close(ln.grad, ln_ref.grad, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+
+
+def test_non_spd_particle_is_nan_in_its_lane_only(dev):
+    args = _batch(dev)
+    types, params = args[0].clone(), args[1].clone()
+    types[2] = 0
+    types[2, 0] = st.CONST
+    params[2] = 0.0
+    params[2, 0, 0] = 100.0  # exp(100) = inf in float32
+    keep = torch.arange(types.shape[0], device=dev) != 2
+    base = megalml.megalml_val(*args)
+    for core in (megalml.megalml_val(types, params, *args[2:]),
+                 megalml.megalml_vag(types, params, *args[2:])[0]):
+        assert torch.isnan(core[2])
+        assert torch.equal(core[keep], base[keep])
+
+
+def test_outside_the_envelope_raises(dev):
+    args = _batch(dev, n=72, n_active=72)
+    with pytest.raises(NotImplementedError, match="K4/K5"):
+        megalml.megalml_val(*args)
