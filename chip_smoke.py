@@ -1,27 +1,44 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fit-and-nowcast path once on one NVIDIA card.
+"""Drive the PyTorch port's fit-and-forecast paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero before the final line):
 
 1. setup: require CUDA, print the card's name and power limit, turn TF32
-   off, build the LML kernels (``nowcastautogp_tpu_torch/csrc/megalml.cu``)
-   with nvcc and print ptxas's register/spill report to stderr;
-2. kernel parity on the card: K2 (value) and K1 (value + gradients) against
-   the plain torch version on prior-sampled depth-5 populations and a
-   hand-built batch covering all 8 node types, at n in {32, 96, 160} with
-   full and partial masks and at n = 512; K1's value bitwise equal to K2's;
-   a non-SPD particle is NaN in its own lane only; then ms per evaluation of
-   K1, K2 and the plain version at P = 200, n = 160;
-3. end to end: the ``bench.py`` workload through the port — a 200-particle
+   off, build the kernel library (``nowcastautogp_tpu_torch/csrc/*.cu``,
+   one nvcc per source, all at once) and print ptxas's register/spill
+   report to stderr;
+2. kernel parity on the card, each kernel against its plain torch version
+   in float64 (the reference) and float32 under the per-particle rule of
+   ``_parity``, at the shapes the main paths give it: K2 (value) and K1
+   (value + gradients) on 200 prior-sampled depth-5 particles at every
+   capacity the two fits run them at (32 ... 160 weekly, 96 ... 512
+   daily), with full and partial masks, and on a hand-built batch covering
+   all 8 node types, K1's value bitwise K2's; K4 (covariance), K5 (its
+   VJP, asymmetric cotangent) and K3 (L^-1, also through the inverse
+   core's value and gradients) on the same kinds of batches at P = 200 and
+   n in {96, 160, 576} (160: the nowcast's K(x, x); 576: the daily
+   composed step and forecast) and at P = 4, n = 1024, K4/K5 also at
+   n = 2048; each of K3/K4/K5 bitwise equal over two launches; a non-SPD
+   particle NaN in its own K1/K2/K3 lane only; then ms per launch (CUDA
+   events, median of 20 after 3 warm-ups) of every kernel and its plain
+   version at the main paths' shapes (K1/K2 at P = 200, n = 160; K3/K4/K5
+   at P = 200, n = 576) and K3's library call;
+3. weekly: the ``bench.py`` workload through the port -- a 200-particle
    depth-5 SMC fit on a 150-week series (14 structure moves x 5 HMC x 5
-   leapfrog per step) and a 100-scenario x 20-draw nowcast forecast —
-   scored by log-CRPS and 90% coverage, with both kernels' launch counts
-   taken over that run alone.
+   leapfrog per step) and a 100-scenario x 20-draw nowcast forecast --
+   scored by log-CRPS and 90% coverage;
+4. daily: ``tools/daily_bench.py``'s ``daily_200p`` at seed 2 -- a
+   200-particle depth-5 fit on 560 days (capacities 96 ... 576: K1/K2 up to
+   512, the composed K4 -> K3 -> K5 path at 576; 8 moves x 5 HMC x 5
+   leapfrog per step) and a 28-day, 2000-draw ``forecast`` -- scored the
+   same way.
 
-Prints a JSON line of per-kernel results, the ``nvidia-smi`` name/power
-line, and last ``{"ok": true, "device": {...}}``.
+Launch counts of every kernel are set to 0 just before phase 3 and phase 4
+and read just after each.  Prints per-phase seconds, a JSON line of
+results, the ``kernels`` line, the ``nvidia-smi`` name/power line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -41,13 +58,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # (tests/test_pallas_megalml.py): value, then gradients
 VAL_RTOL, VAL_ATOL = 2e-4, 2e-3
 GRAD_RTOL, GRAD_ATOL = 3e-3, 3e-3
+# covariance value, and its VJP by n (tests/test_pallas_megacov.py)
+COV_RTOL, COV_ATOL = 1e-5, 1e-5
+COT_TOL_SMALL, COT_TOL_LARGE = 2e-4, 2e-3
+# L^-1 scaled by its largest entry per particle
+INV_RTOL, INV_ATOL = 1e-3, 1e-4
 # how much farther from float64 than float32 plain the kernel may be on a
 # particle where float32 plain itself misses the tolerance
 ILL_FACTOR = 10.0
 # one-seed collapse bound on the end-to-end log-CRPS (bench.py gates the
-# three-seed mean at 0.105)
+# three-seed mean at 0.105, tools/daily_bench.py at 0.12)
 MAX_LOG_CRPS = 0.2
 
+# the card's peaks (NVIDIA H100 SXM data sheet): FP32 outside the tensor
+# cores and HBM bandwidth, for each kernel's bound
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 DEVICE = "cuda"
 
@@ -65,6 +91,13 @@ def log(msg):
     print(msg, file=sys.stderr, flush=True)
 
 
+def _sync():
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
 # ------------------------------------------------------------------ phase 1
 
 
@@ -79,16 +112,30 @@ def setup():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
-    from nowcastautogp_tpu_torch.ops import megalml
+    from nowcastautogp_tpu_torch.ops import cudalib
 
-    t0 = time.time()
-    _, report = megalml.build_library(verbose=True)
-    build_s = time.time() - t0
-    log(f"kernel build {build_s:.1f} s; ptxas:")
+    _, report = cudalib.build_library(verbose=True)
+    log("ptxas:")
     for line in report.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or line.startswith("==")):
             log("  " + line.strip())
-    return smi.splitlines()[0], build_s
+    return smi.splitlines()[0]
+
+
+def _counters():
+    from nowcastautogp_tpu_torch.ops import chol_mxu, megacov, megalml
+
+    return {"K1": megalml.K1_LAUNCHES, "K2": megalml.K2_LAUNCHES,
+            "K3": chol_mxu.K3_LAUNCHES, "K4": megacov.K4_LAUNCHES,
+            "K5": megacov.K5_LAUNCHES}
+
+
+def _reset_counters():
+    from nowcastautogp_tpu_torch.ops import chol_mxu, megacov, megalml
+
+    for mod in (megalml, megacov, chol_mxu):
+        mod.reset_launch_counts()
 
 
 # ------------------------------------------------------------------ phase 2
@@ -151,20 +198,36 @@ def _batch(types, params, rng, n, n_active):
             cu(y * mask))
 
 
+def _chunk_for(n):
+    """Particles per call of a plain version at capacity n: its interpreter
+    holds (chunk, 16, n, n) level planes (and autograd keeps them), so this
+    keeps each near 1 GiB in float64."""
+    return max(1, 2 ** 23 // (n * n))
+
+
 def _plain_value_and_grads(args, dtype):
-    """Plain version's core and (dparams, gdiag, alpha) in ``dtype``."""
+    """Plain version's core and (dparams, gdiag, alpha) in ``dtype``, a
+    chunk of particles at a time."""
     import torch
 
     from nowcastautogp_tpu_torch.ops.megalml import lml_core_plain
 
-    types, params, diagv, mask, x, ym = (
-        a.to(dtype) if a.is_floating_point() else a for a in args)
-    p, d, y = (t.clone().requires_grad_(True) for t in (params, diagv, ym))
-    core = lml_core_plain(types, p, d, mask, x, y)
-    ok = torch.isfinite(core)
-    gp, gd, gy = torch.autograd.grad(torch.where(ok, core, 0.0).sum(),
-                                     (p, d, y))
-    return (core.detach(), gp, gd, -gy), ok
+    P, n = args[4].shape
+    chunk = _chunk_for(n)
+    parts = []
+    for i in range(0, P, chunk):
+        types, params, diagv, mask, x, ym = (
+            a[i:i + chunk].to(dtype) if a.is_floating_point()
+            else a[i:i + chunk] for a in args)
+        p, d, y = (t.clone().requires_grad_(True)
+                   for t in (params, diagv, ym))
+        core = lml_core_plain(types, p, d, mask, x, y)
+        ok = torch.isfinite(core)
+        gp, gd, gy = torch.autograd.grad(torch.where(ok, core, 0.0).sum(),
+                                         (p, d, y))
+        parts.append((core.detach(), gp, gd, -gy, ok))
+    out = [torch.cat(t) for t in zip(*parts)]
+    return tuple(out[:4]), out[4]
 
 
 def _parity(name, kern, ref32, ref64, ok, rtol, atol):
@@ -203,7 +266,7 @@ def _parity(name, kern, ref32, ref64, ok, rtol, atol):
     return (float(err[well].max()) if well.any() else 0.0), int((~well).sum())
 
 
-def kernel_parity():
+def k1k2_parity():
     """Hold K1 and K2 against the plain version; returns max abs errors."""
     import torch
 
@@ -217,7 +280,13 @@ def kernel_parity():
                                       n_active=n_active)))
             cases.append((f"hand n={n} active={n_active}",
                           _hand_batch(n, seed=n, n_active=n_active)))
-    cases.append(("prior P=8 n=512", _population(8, 512, seed=5)))
+    # every other capacity the weekly (64, 128) and daily (224 ... 512)
+    # fits run K1/K2 at, at their P = 200, partly masked as a fit's buffer is
+    for n in (64, 128, 224, 288, 352, 448, 512):
+        cases.append((f"prior P=200 n={n} active={n - 14}",
+                      _population(200, n, seed=n, n_active=n - 14)))
+    cases.append(("prior P=200 n=512 active=512",
+                  _population(200, 512, seed=5)))
     cases.append(("hand n=512 active=480",
                   _hand_batch(512, seed=6, n_active=480)))
 
@@ -227,7 +296,7 @@ def kernel_parity():
         core1, dp, gd, al = megalml.megalml_vag(*args)
         ref32, ok = _plain_value_and_grads(args, torch.float32)
         ref64, ok64 = _plain_value_and_grads(args, torch.float64)
-        torch.cuda.synchronize()
+        _sync()
         check(torch.equal(core1.view(torch.int32), core2.view(torch.int32)),
               f"{name}: K1 value is not bitwise equal to K2's")
         check(torch.equal(torch.isfinite(core2), ok),
@@ -266,6 +335,135 @@ def kernel_parity():
     return err
 
 
+def _chunked(fn, chunk, *args):
+    """``fn`` over slices of ``chunk`` particles, concatenated: the plain
+    versions hold (P, n, n) planes per heap level (and autograd keeps them),
+    so large n runs a few particles at a time."""
+    import torch
+
+    P = args[0].shape[0]
+    return torch.cat([fn(*(a[i:i + chunk] for a in args))
+                      for i in range(0, P, chunk)])
+
+
+def _bitwise(a, b):
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _inv_core(X, ym):
+    """The inverse core's value and gradients (dA, dym) from X = L^-1, in
+    float64: isolates the error of X itself."""
+    X, ym = X.double(), ym.double()
+    Ainv = X.transpose(1, 2) @ X
+    alpha = (Ainv @ ym[..., None])[..., 0]
+    logdet = -2.0 * X.diagonal(dim1=1, dim2=2).log().sum(-1)
+    core = -0.5 * ((ym * alpha).sum(-1) + logdet)
+    dA = 0.5 * (alpha[:, :, None] * alpha[:, None, :] - Ainv)
+    return core[:, None], dA, -alpha
+
+
+def cov_inverse_parity():
+    """Hold K4, K5 and K3 against their plain versions; returns max abs
+    errors (K3's relative to each particle's largest |L^-1| entry)."""
+    import torch
+
+    from nowcastautogp_tpu_torch.ops import chol_mxu, megacov
+
+    # P = 200 at the main paths' shapes: n = 160 is the weekly nowcast's
+    # K(x, x) (x shared by all particles), n = 576 the daily fit's composed
+    # step and its forecast's K(x, x)
+    cases = []
+    for n, P in ((96, 200), (160, 200), (576, 200), (1024, 4)):
+        for n_active in (n, n - 16):          # 560 of 576, as the daily fit
+            cases.append((f"prior P={P} n={n} active={n_active}",
+                          _population(P, n, seed=n + n_active,
+                                      n_active=n_active)))
+            cases.append((f"hand n={n} active={n_active}",
+                          _hand_batch(n, seed=n + 1, n_active=n_active)))
+    cases.append(("prior P=2 n=2048", _population(2, 2048, seed=8)))
+    cases.append(("hand[8:10] n=2048 active=2000", tuple(
+        a[8:10].contiguous() for a in _hand_batch(2048, 9, n_active=2000))))
+
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    err = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    for name, (types, params, diagv, mask, x, ym) in cases:
+        P, n = x.shape
+        c = _chunk_for(n)
+        K = megacov.megacov_fwd(types, params, x)
+        K32 = _chunked(megacov.megacov_fwd_plain, c, types, params, x)
+        K64 = _chunked(megacov.megacov_fwd_plain, c, types, params.double(),
+                       x.double())
+        ok = torch.isfinite(K64).flatten(1).all(1)
+        check(bool(ok.all()), f"{name}: float64 covariance not finite")
+        e4, _ = _parity(f"{name} K4", (K,), (K32,), (K64,), ok, COV_RTOL,
+                        COV_ATOL)
+        dK = torch.randn(K.shape, generator=gen, device=DEVICE)
+        g = megacov.megacov_bwd(types, params, x, dK)
+        g32 = _chunked(megacov.megacov_bwd_plain, c, types, params, x, dK)
+        g64 = _chunked(megacov.megacov_bwd_plain, c, types, params.double(),
+                       x.double(), dK.double())
+        tol = COT_TOL_SMALL if n < 512 else COT_TOL_LARGE
+        e5, ill5 = _parity(f"{name} K5 (asymmetric dK)", (g,), (g32,),
+                           (g64,), ok, tol, tol)
+        check(_bitwise(K, megacov.megacov_fwd(types, params, x)),
+              f"{name}: K4 differs between two launches")
+        check(_bitwise(g, megacov.megacov_bwd(types, params, x, dK)),
+              f"{name}: K5 differs between two launches")
+        err["K4"] = max(err["K4"], e4)
+        err["K5"] = max(err["K5"], e5)
+        msg = (f"parity ok: {name}: K4 {e4:.3g}, K5 {e5:.3g} (ill lanes "
+               f"{ill5})")
+        if chol_mxu.mxu_supported(n):
+            A64 = (K64 * (mask[:, :, None] * mask[:, None, :]).double()
+                   + torch.diag_embed(diagv.double()))
+            A = A64.float().contiguous()
+            X = chol_mxu.tri_inv(A)
+            X32 = chol_mxu.tri_inv_plain(A)
+            X64 = chol_mxu.tri_inv_plain(A64)
+            _sync()
+            fin = torch.isfinite(X).flatten(1).all(1)
+            check(torch.equal(fin, torch.isfinite(X32).flatten(1).all(1)),
+                  f"{name}: K3 and plain disagree on which lanes are finite")
+            check(_bitwise(X, chol_mxu.tri_inv(A)),
+                  f"{name}: K3 differs between two launches")
+            check(torch.equal(X, torch.tril(X)), f"{name}: K3 not lower")
+            okx = fin & torch.isfinite(X64).flatten(1).all(1)
+            sc = X64.abs().amax((1, 2), keepdim=True)
+            e3, ill3 = _parity(f"{name} K3 L^-1", (X / sc,), (X32 / sc,),
+                               (X64 / sc,), okx, INV_RTOL, INV_ATOL)
+            cores = [_inv_core(t, ym) for t in (X, X32, X64)]
+            ev, _ = _parity(f"{name} K3 core value", cores[0][:1],
+                            cores[1][:1], cores[2][:1], okx, VAL_RTOL,
+                            VAL_ATOL)
+            eg, _ = _parity(f"{name} K3 core gradients", cores[0][1:],
+                            cores[1][1:], cores[2][1:], okx, GRAD_RTOL,
+                            GRAD_ATOL)
+            err["K3"] = max(err["K3"], e3)
+            msg += (f", K3 {e3:.3g} scaled (core value {ev:.3g}, gradients "
+                    f"{eg:.3g}; ill lanes {ill3})")
+        log(msg)
+
+    # a non-SPD particle: a negative pivot makes its lane NaN, only its lane
+    types, params, diagv, mask, x, ym = _population(16, 96, seed=13)
+    K = megacov.megacov_fwd(types, params, x)
+    A = (K * (mask[:, :, None] * mask[:, None, :])
+         + torch.diag_embed(diagv)).contiguous()
+    base = chol_mxu.tri_inv(A)
+    bad = A.clone()
+    bad[2, 50, 50] = -1.0
+    Xb = chol_mxu.tri_inv(bad)
+    keep = torch.arange(16, device=DEVICE) != 2
+    check(bool(torch.isnan(Xb[2]).any()), "K3: broken lane has no NaN")
+    check(bool(torch.isfinite(base).all()), "K3: base batch not finite")
+    check(_bitwise(Xb[keep], base[keep]),
+          "K3: the broken lane changed its neighbours")
+    log("parity ok: non-SPD particle isolated in K3; K3/K4/K5 bitwise "
+        "equal over two launches")
+    return err
+
+
 def _time_ms(fn, warmup=3, runs=20):
     import torch
 
@@ -284,21 +482,110 @@ def _time_ms(fn, warmup=3, runs=20):
     return float(np.median(times))
 
 
+# FP32 operations per element and heap node, counted from the node bodies
+# of csrc/heapwalk.cuh (an exp, log, sinpi or division counts as one
+# operation, an FMA as two), by node type code: forward walk, then the
+# backward sweep's own work; plus the per-element distance terms.
+_FWD_OPS = np.array([0, 0, 4, 4, 6, 7, 1, 1, 19])
+_BWD_OPS = np.array([0, 2, 8, 5, 15, 17, 0, 2, 35])
+_ELEM_OPS = 5
+
+
+def _bound(nbytes, ops):
+    """(bound ms, "bytes" or "operations") on this card's published peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _bounds(types, n):
+    """Each kernel's bound at P particles of heaps ``types`` and capacity n:
+    bytes of its inputs read once and outputs written once, against the
+    operations these trees need (lower-triangle elements; Cholesky and
+    triangular inverse n^3 / 3 flops each)."""
+    t = types.cpu().numpy()
+    P, N = t.shape
+    E = n * (n + 1) / 2
+    fwd = float((_ELEM_OPS + _FWD_OPS[t].sum(1)).sum())   # over particles
+    bwd = float(_BWD_OPS[t].sum())
+    heap = 4 * (P * N + 3 * P * N)
+    chol = P * (n ** 3 / 3 + 2 * n * n)
+    return {
+        "K1": _bound(heap + 4 * 4 * P * n + 4 * (P + 3 * P * N + 2 * P * n),
+                     E * (2 * fwd + bwd + 6 * P) + chol
+                     + P * 2 * n ** 3 / 3),
+        "K2": _bound(heap + 4 * 4 * P * n + 4 * P, E * (fwd + 3 * P) + chol),
+        "K3": _bound(8 * P * n * n, P * 2 * n ** 3 / 3),
+        "K4": _bound(heap + 4 * P * n + 4 * P * n * n, E * fwd),
+        "K5": _bound(heap + 4 * P * n + 4 * P * n * n + 12 * P * N,
+                     E * (fwd + bwd + P)),
+    }
+
+
 def kernel_timing():
-    """ms per evaluation at the fit's largest shape, P = 200, n = 160."""
+    """ms per launch at the main paths' shapes: K1/K2 at P = 200, n = 160
+    (the weekly fit's largest capacity), K3/K4/K5 at P = 200, n = 576 (the
+    daily fit's composed step); the plain versions of K4/K5 run in chunks
+    of 25 particles (their level planes would not fit at P = 200) and are
+    timed over 5 runs after 1 warm-up, as are K1/K2 at n = 512 and the
+    composed LML core at n = 576.  Returns (ms, bounds)."""
     import torch
 
-    from nowcastautogp_tpu_torch.ops import megalml
+    from nowcastautogp_tpu_torch.ops import chol_mxu, lml, megacov, megalml
 
     args = _population(200, 160, seed=7)
-    return {
+    ms = {
         "K1": _time_ms(lambda: megalml.megalml_vag(*args)),
         "K2": _time_ms(lambda: megalml.megalml_val(*args)),
-        "plain_vag": _time_ms(
+        "K1_plain": _time_ms(
             lambda: _plain_value_and_grads(args, torch.float32)),
-        "plain_val": _time_ms(
-            lambda: megalml.lml_core_plain(*args)),
+        "K2_plain": _time_ms(lambda: megalml.lml_core_plain(*args)),
     }
+    bounds = {k: v for k, v in _bounds(args[0], 160).items()
+              if k in ("K1", "K2")}
+    types, params, diagv, mask, x, ym = _population(200, 576, seed=9)
+    K = megacov.megacov_fwd(types, params, x)
+    A = (K * (mask[:, :, None] * mask[:, None, :])
+         + torch.diag_embed(diagv)).contiguous()
+    dK = torch.randn(K.shape, generator=torch.Generator(DEVICE).manual_seed(1),
+                     device=DEVICE)
+    eye = torch.eye(A.shape[-1], device=DEVICE).expand_as(A)
+
+    def library_inverse():
+        L = torch.linalg.cholesky_ex(A)[0]
+        return torch.linalg.solve_triangular(L, eye, upper=False)
+
+    ms.update({
+        "K4": _time_ms(lambda: megacov.megacov_fwd(types, params, x)),
+        "K5": _time_ms(lambda: megacov.megacov_bwd(types, params, x, dK)),
+        "K3": _time_ms(lambda: chol_mxu.tri_inv(A)),
+        "K3_plain": _time_ms(lambda: chol_mxu.tri_inv_plain(A)),
+        "K3_library": _time_ms(library_inverse),
+        "K4_plain": _time_ms(lambda: _chunked(
+            megacov.megacov_fwd_plain, 25, types, params, x), 1, 5),
+        "K5_plain": _time_ms(lambda: _chunked(
+            megacov.megacov_bwd_plain, 25, types, params, x, dK), 1, 5),
+    })
+    bounds.update({k: v for k, v in _bounds(types, 576).items()
+                   if k in ("K3", "K4", "K5")})
+
+    # the two LML paths at the daily fit's largest shapes: K1/K2 at 512,
+    # the composed core (K4 -> K3, K5 in the backward) at 576
+    args = _population(200, 512, seed=4)
+    ms["K1_n512"] = _time_ms(lambda: megalml.megalml_vag(*args), 1, 5)
+    ms["K2_n512"] = _time_ms(lambda: megalml.megalml_val(*args), 1, 5)
+    p = params.clone().requires_grad_(True)
+
+    def composed_value_and_grad():
+        lml.lml_core(types, p, diagv, mask, x, ym).sum().backward()
+
+    def composed_value():
+        with torch.no_grad():
+            lml.lml_core(types, params, diagv, mask, x, ym)
+
+    ms["composed_vag_n576"] = _time_ms(composed_value_and_grad, 1, 5)
+    ms["composed_val_n576"] = _time_ms(composed_value, 1, 5)
+    return ms, bounds
 
 
 # ------------------------------------------------------------------ phase 3
@@ -318,17 +605,49 @@ def _series(n, seed):
     return dates, obs
 
 
-def end_to_end(seed=2, n_particles=200, n_train=150, n_scenarios=100,
-               draws_per=20, horizon=8):
-    import torch
+def _fingerprint(model):
+    """sha256 of the fitted ensemble's state: the fit is a pure function of
+    its seed, so an unchanged fit path gives the same digest."""
+    import hashlib
 
-    import nowcastautogp_tpu_torch as ngp
-    from nowcastautogp_tpu_torch.ops import megalml
+    d = model.to_dict()
+    h = hashlib.sha256()
+    for key in ("node_types", "params", "log_noise", "lml", "log_weight",
+                "hmc_eps_scale"):
+        h.update(np.ascontiguousarray(d[key]).tobytes())
+    return h.hexdigest()[:16]
 
-    dates, obs = _series(n_train + 2 + horizon, seed)
+
+def _score(ngp, fc, truth):
+    crps = float(ngp.crps_matrix(np.log(np.maximum(fc, 1e-9)),
+                                 np.log(truth)).mean())
+    q = ngp.quantile_matrix_device(fc, [0.05, 0.95], device=DEVICE)
+    cover90 = float(np.mean((truth >= q[0]) & (truth <= q[1])))
+    check(crps <= MAX_LOG_CRPS, f"log-CRPS {crps:.4f} > {MAX_LOG_CRPS}")
+    return crps, cover90
+
+
+def _weekly_data(ngp, seed, n_train, n_total):
+    dates, obs = _series(n_total, seed)
     fwd, inv = ngp.get_transformations("boxcox", obs[:n_train])
     data = ngp.create_transformed_data(dates[:n_train], obs[:n_train],
                                        transformation=fwd)
+    return dates, obs, data, fwd, inv
+
+
+def _weekly_fit(ngp, data, seed, n_particles):
+    return ngp.make_and_fit_model(
+        data, n_particles=n_particles, smc_data_proportion=0.1,
+        n_mcmc=14, n_hmc=5, seed=seed, config=ngp.GPConfig(max_depth=5),
+        hmc_config=ngp.HMCConfig(n_leapfrog=5), device=DEVICE)
+
+
+def weekly(seed=2, n_particles=200, n_train=150, n_scenarios=100,
+           draws_per=20, horizon=8):
+    import nowcastautogp_tpu_torch as ngp
+
+    dates, obs, data, fwd, inv = _weekly_data(ngp, seed, n_train,
+                                              n_train + 2 + horizon)
     rng = np.random.default_rng(seed + 1)
     nc_dates = dates[n_train:n_train + 2]
     nc_draws = obs[n_train:n_train + 2] * rng.lognormal(
@@ -338,62 +657,150 @@ def end_to_end(seed=2, n_particles=200, n_train=150, n_scenarios=100,
     f_dates = [nc_dates[-1] + dt.timedelta(weeks=i + 1)
                for i in range(horizon)]
 
-    megalml.reset_launch_counts()
-    torch.cuda.synchronize()
+    _reset_counters()
+    _sync()
     t0 = time.time()
-    model = ngp.make_and_fit_model(
-        data, n_particles=n_particles, smc_data_proportion=0.1,
-        n_mcmc=14, n_hmc=5, seed=seed, config=ngp.GPConfig(max_depth=5),
-        hmc_config=ngp.HMCConfig(n_leapfrog=5), device=DEVICE)
-    torch.cuda.synchronize()
+    model = _weekly_fit(ngp, data, seed, n_particles)
+    _sync()
     fit_s = time.time() - t0
     t0 = time.time()
     fc = ngp.forecast_with_nowcasts(model, ncs, f_dates, draws_per,
                                     inv_transformation=inv, ess_threshold=0.5)
-    torch.cuda.synchronize()
+    _sync()
     nowcast_s = time.time() - t0
-    launches = {"K1": megalml.K1_LAUNCHES, "K2": megalml.K2_LAUNCHES}
+    launches = _counters()
 
     check(fc.shape == (horizon, n_scenarios * draws_per),
           f"forecast shape {fc.shape}")
     check(bool(np.all(np.isfinite(fc)) and np.all(fc >= 0)),
           "forecast has non-finite or negative draws")
-    for k, v in launches.items():
-        check(v > 0, f"{k} was not launched on the main path")
-    truth = obs[n_train + 2:n_train + 2 + horizon]
-    crps = float(ngp.crps_matrix(np.log(np.maximum(fc, 1e-9)),
-                                 np.log(truth)).mean())
-    q = ngp.quantile_matrix_device(fc, [0.05, 0.95], device=DEVICE)
-    cover90 = float(np.mean((truth >= q[0]) & (truth <= q[1])))
-    check(crps <= MAX_LOG_CRPS, f"log-CRPS {crps:.4f} > {MAX_LOG_CRPS}")
+    # the fit is K1/K2 alone (capacities <= 160): 10 steps x 14 moves x
+    # (1 + 5 HMC x 5 leapfrog) gradient calls, 10 x (1 reweight + 14
+    # proposals) value calls; the nowcast takes K(x, x) from K4
+    check((launches["K1"], launches["K2"]) == (3640, 150),
+          f"weekly K1/K2 launches {launches['K1']}/{launches['K2']}, "
+          "expected 3640/150")
+    check(launches["K4"] > 0, "K4 was not launched on the weekly path")
+    crps, cover90 = _score(ngp, fc, obs[n_train + 2:n_train + 2 + horizon])
     return {"fit_s": fit_s, "nowcast_s": nowcast_s, "log_crps": crps,
-            "coverage90": cover90, "launches": launches}
+            "coverage90": cover90, "fit_sha256": _fingerprint(model),
+            "launches": launches}
+
+
+# ------------------------------------------------------------------ phase 4
+
+
+def simulate_daily(n_days: int, seed: int):
+    """Daily counts: seasonal wave x weekday reporting effect x noise
+    (``tools/daily_bench.py``'s generator)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_days)
+    season = 0.6 * np.sin(2 * np.pi * t / 365.0 + rng.uniform(0, 2 * np.pi))
+    weekday = np.array([0.05, 0.12, 0.10, 0.06, 0.0, -0.25, -0.35])
+    dow = weekday[t % 7] * rng.uniform(0.8, 1.2)
+    trend = rng.uniform(0.0006, 0.0018) * t
+    truth = 140 * np.exp(season + dow + trend)
+    obs = np.maximum(truth * np.exp(0.08 * rng.standard_normal(n_days)), 1.0)
+    dates = [dt.date(2024, 1, 1) + dt.timedelta(days=int(i)) for i in t]
+    return dates, obs
+
+
+def _daily_fit(ngp, data, seed, n_particles):
+    return ngp.make_and_fit_model(
+        data, n_particles=n_particles, smc_data_proportion=0.125, n_mcmc=8,
+        n_hmc=5, seed=seed, config=ngp.GPConfig(max_depth=5), device=DEVICE)
+
+
+def _daily_data(ngp, seed, n_train, horizon):
+    dates, obs = simulate_daily(n_train + horizon, seed)
+    fwd, inv = ngp.get_transformations("boxcox", obs[:n_train])
+    data = ngp.create_transformed_data(dates[:n_train], obs[:n_train],
+                                       transformation=fwd)
+    return dates, obs, data, inv
+
+
+def daily(seed=2, n_particles=200, n_train=560, horizon=28, draws=2000):
+    import nowcastautogp_tpu_torch as ngp
+
+    dates, obs, data, inv = _daily_data(ngp, seed, n_train, horizon)
+    _reset_counters()
+    _sync()
+    t0 = time.time()
+    model = _daily_fit(ngp, data, seed, n_particles)
+    _sync()
+    fit_s = time.time() - t0
+    fit_launches = _counters()
+    fit_sha256 = _fingerprint(model)
+    t0 = time.time()
+    fc = ngp.forecast(model, dates[n_train:], draws, inv_transformation=inv)
+    _sync()
+    forecast_s = time.time() - t0
+    launches = _counters()
+
+    check(model._cap == 576, f"daily capacity {model._cap}, expected 576")
+    check(fc.shape == (horizon, draws), f"forecast shape {fc.shape}")
+    check(bool(np.all(np.isfinite(fc)) and np.all(fc >= 0)),
+          "forecast has non-finite or negative draws")
+    for k, v in launches.items():
+        check(v > 0, f"{k} was not launched on the daily path")
+    crps, cover90 = _score(ngp, fc, obs[n_train:])
+    return {"fit_s": fit_s, "forecast_s": forecast_s, "log_crps": crps,
+            "coverage90": cover90, "fit_sha256": fit_sha256,
+            "fit_launches": fit_launches, "launches": launches}
 
 
 def main():
     import torch
 
-    smi, build_s = setup()
-    err = kernel_parity()
-    ms = kernel_timing()
-    log(f"ms/eval at P=200 n=160: {json.dumps(ms)}")
-    e2e = end_to_end()
-    log(f"end to end: {json.dumps(e2e)}")
-    src = "nowcastautogp_tpu_torch/csrc/megalml.cu"
-    kernels = [
-        {"name": "K1 megalml_vag_kernel (LML value + gradient)",
-         "route": "cuda", "source": src,
-         "replaces": "nowcastautogp_tpu/ops/pallas_megalml.py:428",
-         "launches": e2e["launches"]["K1"], "max_abs_err": err["K1"],
-         "ms": ms["K1"], "plain_ms": ms["plain_vag"]},
-        {"name": "K2 megalml_val_kernel (LML value)",
-         "route": "cuda", "source": src,
-         "replaces": "nowcastautogp_tpu/ops/pallas_megalml.py:417",
-         "launches": e2e["launches"]["K2"], "max_abs_err": err["K2"],
-         "ms": ms["K2"], "plain_ms": ms["plain_val"]},
+    phases = {}
+    t0 = time.time()
+    smi = setup()
+    phases["setup"] = time.time() - t0
+    t0 = time.time()
+    err = k1k2_parity()
+    err.update(cov_inverse_parity())
+    phases["parity"] = time.time() - t0
+    t0 = time.time()
+    ms, bounds = kernel_timing()
+    phases["timing"] = time.time() - t0
+    log(f"ms per launch: {json.dumps(ms)}")
+    t0 = time.time()
+    wk = weekly()
+    phases["weekly"] = time.time() - t0
+    log(f"weekly: {json.dumps(wk)}")
+    t0 = time.time()
+    dy = daily()
+    phases["daily"] = time.time() - t0
+    log(f"daily: {json.dumps(dy)}")
+    log(f"phase seconds: {json.dumps(phases)}")
+
+    csrc = "nowcastautogp_tpu_torch/csrc/"
+    tpu = "nowcastautogp_tpu/ops/"
+    table = [
+        ("K1", "megalml_vag_kernel (LML value + gradient)", "megalml.cu",
+         "pallas_megalml.py:428", "K1_plain", None),
+        ("K2", "megalml_val_kernel (LML value)", "megalml.cu",
+         "pallas_megalml.py:417", "K2_plain", None),
+        ("K3", "tri_inv_kernel (blocked Cholesky inverse L^-1)",
+         "chol_mxu.cu", "chol_mxu.py:253", "K3_plain", "K3_library"),
+        ("K4", "megacov_fwd_kernel (batched covariance)", "megacov.cu",
+         "pallas_megacov.py:341", "K4_plain", None),
+        ("K5", "megacov_bwd_kernel (covariance VJP)", "megacov.cu",
+         "pallas_megacov.py:518", "K5_plain", None),
     ]
-    print(json.dumps({"build_s": build_s, "kernel_ms_p200_n160": ms,
-                      "end_to_end": e2e}))
+    kernels = []
+    for k, name, src, tpu_src, plain, lib in table:
+        bound_ms, bound_by = bounds[k]
+        by_path = {"weekly": wk["launches"][k], "daily": dy["launches"][k]}
+        kernels.append({
+            "name": f"{k} {name}", "route": "cuda", "source": csrc + src,
+            "replaces": tpu + tpu_src, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": err[k],
+            "ms": ms[k], "plain_ms": ms[plain], "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": ms[lib] if lib else None})
+    print(json.dumps({"phase_s": phases, "kernel_ms": ms, "weekly": wk,
+                      "daily": dy}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,31 @@
 """nowcastautogp_tpu_torch — the PyTorch and CUDA port of nowcastautogp_tpu.
 
-The port's first slice: the fit-and-nowcast main path.  Data transforms,
-the particle ensemble of heap-encoded kernel trees, data-annealed SMC with
-host structure proposals and batched HMC, the no-refresh shared-date
-nowcast forecast, and CRPS/quantile scoring.  The masked GP log marginal
-likelihood runs in hand-written CUDA kernels on an NVIDIA card
-(``ops/megalml.py``, ``csrc/megalml.cu``) and in plain torch on the CPU.
-The port imports torch and numpy and never jax; module and function names
-follow the JAX package ``nowcastautogp_tpu``, which is its reference.
+The fit-and-forecast main paths: data transforms, the particle ensemble of
+heap-encoded kernel trees, data-annealed SMC with host structure proposals
+and batched HMC, the plain forecaster (``forecast``, ``predict_mvn``) and
+the no-refresh shared-date nowcast forecast, and CRPS/quantile scoring.
+The masked GP log marginal likelihood runs in hand-written CUDA kernels on
+an NVIDIA card (``csrc/``: the fused K1/K2 up to capacity 512, the composed
+K4 -> K3 -> K5 path up to 2048) and in their plain torch versions on the
+CPU.  Entry points run on the card unless the caller passes
+``device="cpu"``.  The port imports torch and numpy and never jax; module
+and function names follow the JAX package ``nowcastautogp_tpu``, which is
+its reference.
 """
 
 from .eval.crps import (
     crps_ensemble, crps_matrix, quantile_matrix, quantile_matrix_device,
 )
 from .fitting import make_and_fit_model
+from .forecasting import forecast
 from .inference.schedule import linear_schedule
 from .inference.smc import fit_smc
 from .models.config import DEFAULT_DEPTH, GPConfig, HMCConfig
-from .models.gp_model import GPModel, add_data, maybe_resample, num_particles
+from .models.gp_model import (
+    GPModel, add_data, maybe_resample, mcmc_parameters, mcmc_structure,
+    num_particles, predict_mvn,
+)
+from .models.posterior import MvNormalMixture
 from .nowcast import create_nowcast_data, forecast_with_nowcasts
 from .tdata import TData, create_transformed_data
 from .transforms import get_transformations
@@ -27,9 +35,10 @@ __version__ = "0.1.0"
 __all__ = [
     "TData", "GPModel", "GPConfig", "HMCConfig", "DEFAULT_DEPTH",
     "create_transformed_data", "get_transformations", "make_and_fit_model",
-    "forecast_with_nowcasts", "create_nowcast_data",
-    "fit_smc", "add_data", "maybe_resample", "num_particles",
-    "linear_schedule",
+    "forecast", "forecast_with_nowcasts", "create_nowcast_data",
+    "fit_smc", "add_data", "predict_mvn", "maybe_resample",
+    "mcmc_structure", "mcmc_parameters", "num_particles", "linear_schedule",
+    "MvNormalMixture",
     "crps_ensemble", "crps_matrix", "quantile_matrix",
     "quantile_matrix_device",
 ]

@@ -8,8 +8,9 @@
 //
 // with A = K(x, x) o (m m^T) + diag(diagv) per particle.  Both inline what
 // the TPU kernels inline: the heap-walk node bodies of
-// ops/pallas_megacov.py (_node_fwd_body, _node_bwd_body) and the Cholesky
-// plus triangular inverse of ops/chol_mxu.py (tri_inv_body).
+// ops/pallas_megacov.py (_node_fwd_body, _node_bwd_body; here heapwalk.cuh,
+// shared with K4/K5 in megacov.cu) and the Cholesky plus triangular
+// inverse of ops/chol_mxu.py (tri_inv_body).
 //
 // Design.  One block of 256 threads per particle.  A particle's tree is
 // uniform across its block, so the per-node type branch never diverges;
@@ -41,172 +42,16 @@
 // exits early, so a broken particle cannot hang its block, and the
 // caller's -1e10 guard then rejects the particle.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "heapwalk.cuh"
 
 namespace {
 
-constexpr int EMPTY = 0, CONST = 1, LINEAR = 2, SE = 3, GE = 4, PERIODIC = 5,
-              PLUS = 6, TIMES = 7, CP = 8;
+using namespace heapwalk;
+
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_N = 512;
-constexpr float LOG_EPS = -27.631021f;  // log(1e-12): GammaExp clamp
-constexpr float PI_F = 3.14159265358979f;
-
-// Per-node data, uniform over the block.  c0/c1 hold per-node scalars that
-// every element of the walk would otherwise recompute.
-struct Node {
-  int type;
-  float p0, p1, p2;
-  float c0, c1;
-};
-
-__device__ __forceinline__ float sigmoidf(float z) {
-  return 1.0f / (1.0f + expf(-z));
-}
-
-__device__ __forceinline__ Node make_node(int t, float p0, float p1,
-                                          float p2) {
-  Node q;
-  q.type = t;
-  q.p0 = p0;
-  q.p1 = p1;
-  q.p2 = p2;
-  q.c0 = 0.0f;
-  q.c1 = 0.0f;
-  if (t == CONST) {
-    q.c0 = expf(p0);
-  } else if (t == SE) {
-    q.c0 = expf(-2.0f * p0);
-  } else if (t == GE) {
-    q.c0 = sigmoidf(p1);        // sigma
-    q.c1 = 2.0f * q.c0;         // gamma
-  } else if (t == PERIODIC) {
-    q.c0 = expf(-2.0f * p0);
-    q.c1 = expf(-p1);           // 1 / period
-  } else if (t == LINEAR) {
-    q.c0 = expf(p1);
-  } else if (t == CP) {
-    q.c0 = expf(-p1);           // 1 / scale
-  }
-  return q;
-}
-
-// Bottom-up tree walk for one element: v[k] = value of heap slot k.
-template <int N>
-__device__ __forceinline__ void walk_fwd(const Node* nd, float xi, float xj,
-                                         float r, float r2, float log_r,
-                                         float (&v)[N]) {
-#pragma unroll
-  for (int k = N - 1; k >= 0; --k) {
-    const int t = nd[k].type;
-    float val = 0.0f;
-    if (t == CONST) {
-      val = nd[k].c0;
-    } else if (t == SE) {
-      val = expf(nd[k].p1 - 0.5f * r2 * nd[k].c0);
-    } else if (t == GE) {
-      const float pw = expf(nd[k].c1 * fmaxf(log_r - nd[k].p0, LOG_EPS));
-      val = expf(r > 0.0f ? nd[k].p2 - pw : nd[k].p2);
-    } else if (t == PERIODIC) {
-      const float s = sinpif(r * nd[k].c1);
-      val = expf(nd[k].p2 - 2.0f * s * s * nd[k].c0);
-    } else if (t == LINEAR) {
-      val = nd[k].c0 * ((xi - nd[k].p0) * (xj - nd[k].p0));
-    }
-    if (2 * k + 2 < N) {  // static per unrolled slot: only these have children
-      const float vl = v[2 * k + 1], vr = v[2 * k + 2];
-      if (t == PLUS) {
-        val = vl + vr;
-      } else if (t == TIMES) {
-        val = vl * vr;
-      } else if (t == CP) {
-        const float s1 = sigmoidf((xi - nd[k].p0) * nd[k].c0);
-        const float s2 = sigmoidf((xj - nd[k].p0) * nd[k].c0);
-        val = s1 * s2 * vl + (1.0f - s1) * (1.0f - s2) * vr;
-      }
-    }
-    v[k] = val;
-  }
-}
-
-// Top-down cotangent sweep for one element with seed w = dcore/dK_ij
-// (already folded and masked); accumulates dK_ij/dparams * w into acc.
-template <int N>
-__device__ __forceinline__ void walk_bwd(const Node* nd, float xi, float xj,
-                                         float w, float (&acc)[N][3]) {
-  const float d = xi - xj;
-  const float r = fabsf(d);
-  const float r2 = d * d;
-  const float log_r = logf(fmaxf(r, 1e-30f));
-  float v[N];
-  walk_fwd<N>(nd, xi, xj, r, r2, log_r, v);
-  float dv[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) dv[k] = 0.0f;
-  dv[0] = w;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const int t = nd[k].type;
-    const float g = dv[k];
-    const float gk = g * v[k];
-    if (t == CONST) {
-      acc[k][0] += gk;
-    } else if (t == SE) {
-      acc[k][0] += gk * r2 * nd[k].c0;
-      acc[k][1] += gk;
-    } else if (t == GE) {
-      const float lw = log_r - nd[k].p0;
-      const float wc = fmaxf(lw, LOG_EPS);
-      const float pw = expf(nd[k].c1 * wc);
-      if (r > 0.0f) {
-        if (lw > LOG_EPS) acc[k][0] += gk * pw * nd[k].c1;
-        acc[k][1] -= gk * pw * wc * nd[k].c1 * (1.0f - nd[k].c0);
-      }
-      acc[k][2] += gk;
-    } else if (t == PERIODIC) {
-      const float u = r * nd[k].c1;
-      const float s = sinpif(u);
-      acc[k][0] += gk * 4.0f * s * s * nd[k].c0;
-      acc[k][1] += gk * 4.0f * s * cospif(u) * (PI_F * u) * nd[k].c0;
-      acc[k][2] += gk;
-    } else if (t == LINEAR) {
-      acc[k][0] -= g * ((xi - nd[k].p0) + (xj - nd[k].p0)) * nd[k].c0;
-      acc[k][1] += gk;
-    }
-    if (2 * k + 2 < N) {
-      const int l = 2 * k + 1, rr = 2 * k + 2;
-      if (t == PLUS) {
-        dv[l] = g;
-        dv[rr] = g;
-      } else if (t == TIMES) {
-        dv[l] = g * v[rr];
-        dv[rr] = g * v[l];
-      } else if (t == CP) {
-        const float inv_s = nd[k].c0;
-        const float zc = (xi - nd[k].p0) * inv_s;
-        const float zr = (xj - nd[k].p0) * inv_s;
-        const float s1c = sigmoidf(zc), s1r = sigmoidf(zr);
-        const float vl = v[l], vr = v[rr];
-        dv[l] = g * (s1c * s1r);
-        dv[rr] = g * ((1.0f - s1c) * (1.0f - s1r));
-        const float m1 = g * (s1r * vl - (1.0f - s1r) * vr);  // d/d s(xi)
-        const float m2 = g * (s1c * vl - (1.0f - s1c) * vr);  // d/d s(xj)
-        const float spc = s1c * (1.0f - s1c), spr = s1r * (1.0f - s1r);
-        acc[k][0] -= (m1 * spc + m2 * spr) * inv_s;
-        acc[k][1] -= m1 * spc * zc + m2 * spr * zr;
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+constexpr int FLUSH = 16;  // elements per lane between K1's accumulator flushes
 
 // Deterministic block sum of f(i) over i < n: lanes of warp 0 sum strided
 // entries in order, then a fixed shuffle tree.  Result valid in warp 0.
@@ -215,6 +60,26 @@ __device__ __forceinline__ float warp0_sum(int n, F f) {
   float s = 0.0f;
   for (int i = threadIdx.x; i < n; i += 32) s += f(i);
   return warp_sum(s);
+}
+
+// Adds a warp's per-lane gradient sums into its double accumulator dst
+// (3 N entries; lane 0 writes) and zeroes them.  Slots without parameters
+// (empty, Plus, Times: the type is uniform over the block) hold zeros and
+// are skipped.
+template <int N>
+__device__ __forceinline__ void flush_acc(const Node* nd, float (&acc)[N][3],
+                                          double* dst, int lane) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int t = nd[k].type;
+    if (t == EMPTY || t == PLUS || t == TIMES) continue;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float s = warp_sum(acc[k][c]);
+      if (lane == 0) dst[3 * k + c] += s;
+      acc[k][c] = 0.0f;
+    }
+  }
 }
 
 // Per-particle shared state.  s_t enters value_steps holding ym and leaves
@@ -340,7 +205,7 @@ megalml_vag_kernel(int n, const int* __restrict__ types,
                    float* __restrict__ ws1, float* __restrict__ ws2) {
   __shared__ Shared sh;
   __shared__ float s_a[MAX_N];
-  __shared__ float s_red[WARPS][3 * N];
+  __shared__ double s_acc[WARPS][3 * N];
   const int p = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float* L = ws1 + static_cast<size_t>(p) * n * n;
@@ -397,10 +262,17 @@ megalml_vag_kernel(int n, const int* __restrict__ types,
         0.5f * (s_a[j] * s_a[j] - Ainv[static_cast<size_t>(j) * n + j]);
 
   // 7. backward walk over the lower triangle with the folded cotangent
-  //    W = 0.5 (alpha alpha^T - A^-1) o (m m^T), weight 2 below the diagonal
+  //    W = 0.5 (alpha alpha^T - A^-1) o (m m^T), weight 2 below the diagonal.
+  //    On an ill-conditioned particle W's entries are large and cancel, so
+  //    one float running sum per lane over its ~n^2 / 512 elements loses
+  //    the gradient; every FLUSH elements a lane's sums go through the warp
+  //    tree into the warp's double accumulator (same order every launch).
+  for (int q = tid; q < WARPS * 3 * N; q += THREADS) (&s_acc[0][0])[q] = 0.0;
+  __syncthreads();
   float acc[N][3];
 #pragma unroll
   for (int k = 0; k < N; ++k) acc[k][0] = acc[k][1] = acc[k][2] = 0.0f;
+  int pending = 0;  // elements per lane since the last flush, warp-uniform
   for (int i = warp; i < n; i += WARPS) {
     const float xi = sh.x[i], mi = sh.m[i], ai = s_a[i];
     for (int j = lane; j <= i; j += 32) {
@@ -409,23 +281,20 @@ megalml_vag_kernel(int n, const int* __restrict__ types,
                       * fold * (mi * sh.m[j]);
       walk_bwd<N>(sh.nd, xi, sh.x[j], w, acc);
     }
-  }
-
-  // 8. dparams: warp shuffle sums, then warps summed in a fixed order
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float s = warp_sum(acc[k][c]);
-      if (lane == 0) s_red[warp][3 * k + c] = s;
+    pending += (i + 32) / 32;
+    if (pending >= FLUSH || i + WARPS >= n) {
+      flush_acc<N>(sh.nd, acc, s_acc[warp], lane);
+      pending = 0;
     }
   }
   __syncthreads();
+
+  // 8. dparams: the warps' double sums added in a fixed order
   for (int q = tid; q < 3 * N; q += THREADS) {
-    float s = 0.0f;
+    double s = 0.0;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) s += s_red[w][q];
-    dparams[static_cast<size_t>(p) * 3 * N + q] = s;
+    for (int w = 0; w < WARPS; ++w) s += s_acc[w][q];
+    dparams[static_cast<size_t>(p) * 3 * N + q] = static_cast<float>(s);
   }
 }
 

@@ -51,7 +51,7 @@ def quantile_matrix(forecasts: np.ndarray, qs) -> np.ndarray:
                        np.asarray(qs), axis=1)
 
 
-def quantile_matrix_device(forecasts, qs, device="cpu") -> np.ndarray:
+def quantile_matrix_device(forecasts, qs, device="cuda") -> np.ndarray:
     """Per-row quantiles of a large ``(n_dates, n_draws)`` draw matrix,
     aggregated on ``device`` before any host transfer.  Matches
     ``np.quantile``'s default linear interpolation."""

@@ -52,7 +52,7 @@ def _stabilize_for_fit(y, *, flat_threshold: float = 1e-3,
 def make_and_fit_model(
     data: TData, *, n_particles: int = 1, smc_data_proportion: float = 0.1,
     flat_threshold: float = 1e-3, config: GPConfig | None = None,
-    seed: int | None = None, device="cpu", **kwargs,
+    seed: int | None = None, device="cuda", **kwargs,
 ) -> GPModel:
     """Create and fit a GP particle ensemble via SMC on ``device``.
 

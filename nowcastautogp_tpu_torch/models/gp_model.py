@@ -33,12 +33,14 @@ import torch
 from ..inference.hmc import run_hmc
 from ..inference.resample import ess, gather_particles, resample_indices
 from ..inference.structure_mcmc import mcmc_structure_sweep
-from ..ops.lml import DEFAULT_JITTER, gp_lml_batched
+from ..ops.lml import DEFAULT_JITTER, gp_lml_batched, gp_predict_batch
 from ..utils.dates import as_date_array, dates_to_float
 from .config import GPConfig, HMCConfig
+from .posterior import MvNormalMixture
 from .structures import prior_arrays, sample_particle
 
-__all__ = ["GPModel", "num_particles", "add_data", "maybe_resample"]
+__all__ = ["GPModel", "num_particles", "normalized_weights", "predict_mvn",
+           "add_data", "maybe_resample", "mcmc_structure", "mcmc_parameters"]
 
 # Capacity granule for the fixed-shape data buffers; the LML kernels take
 # n % 32 == 0.
@@ -63,7 +65,7 @@ class GPModel:
 
     def __init__(self, ds_or_dict, y=None, *, n_particles: int = 1,
                  config: GPConfig | None = None, seed: int | None = None,
-                 device="cpu"):
+                 device="cuda"):
         self.device = torch.device(device)
         if isinstance(ds_or_dict, dict) and y is None:
             self._init_from_dict(ds_or_dict)
@@ -112,7 +114,7 @@ class GPModel:
         self._push_data()
 
     @classmethod
-    def from_jax_state(cls, d: dict, device="cpu") -> "GPModel":
+    def from_jax_state(cls, d: dict, device="cuda") -> "GPModel":
         """Build the port's model from the JAX package's ``GPModel.to_dict()``.
 
         ``d`` holds numpy arrays and a JAX-package ``GPConfig``; the config is
@@ -337,6 +339,30 @@ def num_particles(model: GPModel) -> int:
     return model.num_particles
 
 
+def normalized_weights(model: GPModel) -> np.ndarray:
+    """Normalized importance weights of the particle ensemble (float64)."""
+    lw = model.log_weight - model.log_weight.max()
+    w = np.exp(lw)
+    return w / w.sum()
+
+
+def predict_mvn(model: GPModel, ds, *,
+                include_noise: bool = True) -> MvNormalMixture:
+    """Predictive posterior at ``ds`` as a weighted mixture over particles,
+    on the transformed-data scale (``AutoGP.predict_mvn`` semantics).  The
+    moments are computed on ``model.device`` over the full data buffer."""
+    xs = model._tensor(model._normalize_dates(ds))
+    x, y, m = model._batched_data()
+    with torch.no_grad():
+        mu, cov = gp_predict_batch(
+            model._types_d(), model._params_d, model._log_noise_d, x, y, m,
+            xs, DEFAULT_JITTER, include_noise)
+    w = normalized_weights(model)
+    mu = model._y_mean + model._y_std * mu.cpu().numpy().astype(np.float64)
+    cov = (model._y_std**2) * cov.cpu().numpy().astype(np.float64)
+    return MvNormalMixture(w, mu, cov)
+
+
 def add_data(model: GPModel, ds, y) -> None:
     """Incrementally condition on new observations (SMC reweighting), the
     semantics of ``AutoGP.add_data!``."""
@@ -374,3 +400,16 @@ def maybe_resample(model: GPModel, threshold: float) -> bool:
         model.resample()
         return True
     return False
+
+
+def mcmc_structure(model: GPModel, n_mcmc: int, n_hmc: int,
+                   hmc_config: HMCConfig | None = None) -> float:
+    """Structure + hyperparameter rejuvenation of all particles
+    (``AutoGP.mcmc_structure!``)."""
+    return model.rejuvenate(int(n_mcmc), int(n_hmc), hmc_config)
+
+
+def mcmc_parameters(model: GPModel, n_hmc: int,
+                    hmc_config: HMCConfig | None = None) -> float:
+    """HMC-only hyperparameter rejuvenation (``AutoGP.mcmc_parameters!``)."""
+    return model.hmc_only(int(n_hmc), hmc_config)

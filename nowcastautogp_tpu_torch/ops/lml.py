@@ -8,22 +8,37 @@ the active subset.  A particle whose LML is not finite gets ``-1e10``, so
 SMC weights and MH accepts treat a numerically broken proposal as
 rejected.
 
-The LML core goes through ``ops/megalml.py``: on a CUDA tensor the fused
-CUDA kernels, on a CPU tensor their plain version.  Both sides of every
-comparison the fit makes (MH logits, reweight deltas, values carried out of
-HMC) therefore come from one numerical core at a given device.
+The LML core (``lml_core``) is chosen by capacity n, the same way on both
+devices, so the CPU tests run the glue the card runs:
+
+* n <= 512: the fused core of ``ops/megalml.py`` (K1/K2 on a CUDA tensor,
+  their plain version on a CPU tensor);
+* 512 < n <= 2048: the composed core, the JAX package's ``_lml_from_K``
+  path: K(x, x) from ``CovFn`` (K4 forward, K5 backward), the masked A, then
+  ``InvCoreFn`` (K3's X = L^-1 for n <= 1024, the JAX ``"inv"`` form of
+  ``cholesky_nan`` and a triangular solve above), whose backward is the
+  analytic dA = c/2 (alpha alpha^T - A^-1), dym = -c alpha;
+* beyond 2048: ``NotImplementedError``.
+
+At one shape the value path and the gradient path use the same core, so
+both sides of every comparison the fit makes (MH logits, reweight deltas,
+values carried out of HMC) come from one numerical core.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import megalml
+from .chol_mxu import mxu_supported, tri_inv
 from .kernels import eval_cov_batch
-from .megalml import cholesky_nan, lml_core
+from .megacov import MAX_MEGA_N, cov_batched
+from .megalml import cholesky_nan
 
 __all__ = [
     "masked_kernel_matrix", "gp_lml_batched", "gp_predict_batch",
-    "sampling_cholesky", "LOG_2PI", "DEFAULT_JITTER",
+    "sampling_cholesky", "lml_core", "lml_core_composed", "InvCoreFn",
+    "LOG_2PI", "DEFAULT_JITTER",
 ]
 
 LOG_2PI = 1.8378770664093453
@@ -35,12 +50,77 @@ def masked_kernel_matrix(node_types, params, log_noise, x, mask,
     """K(x,x) + (noise+jitter)·I on active rows, identity on masked rows.
 
     Batched: node_types (P, N), params (P, N, 3), log_noise (P,), x and mask
-    (P, n) or a shared (n,).  Returns (P, n, n).
+    (P, n) or a shared (n,).  Returns (P, n, n).  K(x, x) comes from
+    ``cov_batched``: K4 on the card.
     """
-    K = eval_cov_batch(node_types, params, x, x)
+    K = cov_batched(node_types, params, x)
     mm = mask[..., :, None] * mask[..., None, :]
     diag = mask * (torch.exp(log_noise)[:, None] + jitter) + (1.0 - mask)
     return K * mm + torch.diag_embed(diag)
+
+
+def _tri_inv_inv_form(A):
+    """X = L^-1 by ``cholesky_nan`` and a triangular solve against I: the
+    JAX package's ``"inv"`` form (``_ainv_logdet_xla``).  The reference runs
+    no kernel for it, so neither does the port: it is chosen by shape, on
+    both devices, where K3's envelope ends (1024 < n <= 2048, or n not a
+    multiple of 32), never as a fallback from a failed launch."""
+    L = cholesky_nan(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return torch.linalg.solve_triangular(L, eye.expand_as(A), upper=False)
+
+
+def _ainv_logdet(A):
+    """A -> (A^-1, logdet A) from X = L^-1, the form chosen by shape as the
+    JAX package's ``lml_core_from_A`` chooses it: K3 inside its envelope
+    (``_ainv_logdet_mxu``), else the ``"inv"`` form.  A^-1 = X^T X and, as
+    diag(L^-1) = 1 / diag(L), logdet A = -2 sum log diag X."""
+    X = tri_inv(A) if mxu_supported(A.shape[-1]) else _tri_inv_inv_form(A)
+    logdet = -2.0 * torch.log(torch.diagonal(X, dim1=-2, dim2=-1)).sum(-1)
+    return X.transpose(-1, -2) @ X, logdet
+
+
+class InvCoreFn(torch.autograd.Function):
+    """``-0.5 (ym^T A^-1 ym + logdet A)`` per particle with the analytic
+    backward of the JAX package's ``_make_inv_core``: from the saved
+    (A^-1, alpha), dA = c/2 (alpha alpha^T - A^-1) and dym = -c alpha, with
+    no autograd through the factorisation.  A non-SPD lane is NaN and the
+    caller's guard rejects it."""
+
+    @staticmethod
+    def forward(ctx, A, ym):
+        Ainv, logdet = _ainv_logdet(A)
+        alpha = (Ainv @ ym[..., None])[..., 0]
+        ctx.save_for_backward(Ainv, alpha)
+        return -0.5 * ((ym * alpha).sum(-1) + logdet)
+
+    @staticmethod
+    def backward(ctx, c):
+        Ainv, alpha = ctx.saved_tensors
+        dA = (0.5 * c)[:, None, None] * (alpha[:, :, None] * alpha[:, None, :]
+                                         - Ainv)
+        return dA, -c[:, None] * alpha
+
+
+def lml_core_composed(types, params, diagv, mask, x, ym):
+    """The composed core (the JAX package's ``_lml_from_K``): K from
+    ``CovFn``, A = K o (m m^T) + diag(diagv), then ``InvCoreFn``."""
+    K = cov_batched(types, params, x)
+    A = K * (mask[:, :, None] * mask[:, None, :]) + torch.diag_embed(diagv)
+    return InvCoreFn.apply(A, ym)
+
+
+def lml_core(types, params, diagv, mask, x, ym):
+    """Batched ``-0.5 (ym^T A^-1 ym + logdet A)`` with A = K(x, x) o (m m^T)
+    + diag(diagv), dispatched by capacity (module docstring)."""
+    n = x.shape[-1]
+    if n <= megalml._MAX_N:
+        return megalml.lml_core(types, params, diagv, mask, x, ym)
+    if n <= MAX_MEGA_N:
+        return lml_core_composed(types, params, diagv, mask, x, ym)
+    raise NotImplementedError(
+        f"capacity n={n} is beyond the LML's envelope (n <= {MAX_MEGA_N}: "
+        "the fused core up to 512, the composed core above; ROADMAP.md)")
 
 
 def gp_lml_batched(node_types, params, log_noise, x, y, mask,

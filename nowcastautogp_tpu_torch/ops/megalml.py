@@ -2,7 +2,7 @@
 
 ``lml_core(types, params, diagv, mask, x, ym)`` returns, per particle,
 ``-0.5 (ym^T A^-1 ym + logdet A)`` with ``A = K(x, x) o (m m^T) +
-diag(diagv)``.  It is the only LML entry of the fit:
+diag(diagv)``.  It is the fit's LML core up to capacity 512:
 
 * a CPU tensor takes ``lml_core_plain``: the torch interpreter, a Cholesky
   and a triangular solve, differentiated by autograd;
@@ -19,27 +19,21 @@ outside the kernels' envelope, raises.  The kernels replace the TPU kernels
 ``::_megalml_val_kernel`` (K2); the source note in ``csrc/megalml.cu`` says
 what bounds them and how.
 
-The library is built with ``nvcc`` on first use into ``_build/`` beside the
-package (listed in ``.gitignore``), named by a hash of the source, and bound
-with ``ctypes``.
+The kernels live in the port's one CUDA library (``ops/cudalib.py``: built
+with ``nvcc`` on first use, bound with ``ctypes``).  Capacities above 512
+take the composed path instead (``ops/lml.py::lml_core``).
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-
 import torch
 
+from .cudalib import library, raise_on
 from .kernels import eval_cov_batch
 
 __all__ = [
     "lml_core", "lml_core_plain", "LmlCoreFn", "megalml_val", "megalml_vag",
-    "megalml_supported", "build_library", "cholesky_nan",
+    "megalml_supported", "cholesky_nan",
     "K1_LAUNCHES", "K2_LAUNCHES", "reset_launch_counts",
 ]
 
@@ -48,12 +42,8 @@ __all__ = [
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "megalml.cu"
-_BUILD_DIR = _PKG / "_build"
 _HEAP_SIZES = (7, 15, 31, 63)
 _MAX_N = 512
-_LIB = None
 
 
 def reset_launch_counts() -> None:
@@ -87,56 +77,6 @@ def lml_core_plain(types, params, diagv, mask, x, ym):
     return -0.5 * ((t * t).sum(-1) + logdet)
 
 
-# ------------------------------------------------------------------ build
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    for cand in (shutil.which("nvcc"),
-                 CUDA_HOME and os.path.join(CUDA_HOME, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the LML kernels")
-
-
-def build_library(verbose: bool = False) -> tuple[Path, str]:
-    """Compile ``csrc/megalml.cu`` for sm_90a unless a library built from
-    the same source exists.  Returns (library path, compiler log);
-    ``verbose`` asks ptxas for its register and spill report."""
-    tag = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"libmegalml_{tag}.so"
-    if lib.exists() and not verbose:
-        return lib, ""
-    _BUILD_DIR.mkdir(exist_ok=True)
-    tmp = _BUILD_DIR / f"libmegalml_{tag}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-           str(_SOURCE)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        path, _ = build_library()
-        lib = ctypes.CDLL(str(path))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.megalml_val.argtypes = [i32, i32, i32] + [ptr] * 9
-        lib.megalml_val.restype = i32
-        lib.megalml_vag.argtypes = [i32, i32, i32] + [ptr] * 13
-        lib.megalml_vag.restype = i32
-        _LIB = lib
-    return _LIB
-
-
 # ---------------------------------------------------------------- wrappers
 
 
@@ -163,29 +103,23 @@ def _check_inputs(types, params, diagv, mask, x, ym):
     if N not in _HEAP_SIZES or not megalml_supported(N, n):
         raise NotImplementedError(
             f"heap size {N} x n={n} is outside the LML kernels' envelope "
-            f"(N in {_HEAP_SIZES}, 32 <= n <= {_MAX_N}, n % 32 == 0); the "
-            "composed path needs kernels K4/K5 (ROADMAP.md, TPU kernels to "
-            "port)")
+            f"(N in {_HEAP_SIZES}, 32 <= n <= {_MAX_N}, n % 32 == 0); "
+            "ops/lml.lml_core routes larger capacities to the composed path")
     return P, N, n
-
-
-def _raise_on(rc: int, which: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{which} launch failed with cudaError_t {rc}")
 
 
 def megalml_val(types, params, diagv, mask, x, ym):
     """K2: value-only kernel -> core (P,)."""
     global K2_LAUNCHES
     P, N, n = _check_inputs(types, params, diagv, mask, x, ym)
-    lib = _library()
+    lib = library()
     core = torch.empty(P, dtype=torch.float32, device=types.device)
     ws = torch.empty((P, n, n), dtype=torch.float32, device=types.device)
     stream = torch.cuda.current_stream(types.device).cuda_stream
     rc = lib.megalml_val(N, P, n, types.data_ptr(), params.data_ptr(),
                          diagv.data_ptr(), mask.data_ptr(), x.data_ptr(),
                          ym.data_ptr(), core.data_ptr(), ws.data_ptr(), stream)
-    _raise_on(rc, "K2 megalml_val")
+    raise_on(rc, "K2 megalml_val")
     K2_LAUNCHES += 1
     return core
 
@@ -195,7 +129,7 @@ def megalml_vag(types, params, diagv, mask, x, ym):
     gdiag (P, n) = d core / d diagv, alpha (P, n) = A^-1 ym)."""
     global K1_LAUNCHES
     P, N, n = _check_inputs(types, params, diagv, mask, x, ym)
-    lib = _library()
+    lib = library()
     dev = types.device
     core = torch.empty(P, dtype=torch.float32, device=dev)
     dparams = torch.empty((P, N, 3), dtype=torch.float32, device=dev)
@@ -209,7 +143,7 @@ def megalml_vag(types, params, diagv, mask, x, ym):
                          ym.data_ptr(), core.data_ptr(), dparams.data_ptr(),
                          gdiag.data_ptr(), alpha.data_ptr(), ws1.data_ptr(),
                          ws2.data_ptr(), stream)
-    _raise_on(rc, "K1 megalml_vag")
+    raise_on(rc, "K1 megalml_vag")
     K1_LAUNCHES += 1
     return core, dparams, gdiag, alpha
 

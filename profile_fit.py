@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Split one of ``chip_smoke.py``'s fits into device kernels and host phases.
+
+    python3 profile_fit.py daily     # phase 4's fit (daily_200p, seed 2)
+    python3 profile_fit.py weekly    # phase 3's fit (bench.py, seed 2)
+
+Builds the kernel library as ``chip_smoke.py`` does, then runs the fit three
+times on one NVIDIA card: unprofiled; under ``torch.profiler`` with CUDA
+activity only (device time by kernel); and with synchronised host timers
+around its phases (structure proposals, HMC, proposal LMLs, reweights).
+The timers wrap the functions the fit looks up in its modules; a phase
+whose timer never fired is an error, so a renamed call site cannot leave
+a split that silently misses a phase.  Prints one JSON object, then the
+``nvidia-smi`` name/power line.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import chip_smoke as cs
+
+
+def _timed(timers, key, fn):
+    def wrapper(*a, **k):
+        cs._sync()
+        t = time.time()
+        r = fn(*a, **k)
+        cs._sync()
+        timers[key] = timers.get(key, 0.0) + time.time() - t
+        return r
+    return wrapper
+
+
+def profile_fit(path, seed=2, n_particles=200):
+    import torch
+
+    import nowcastautogp_tpu_torch as ngp
+    from nowcastautogp_tpu_torch.inference import structure_mcmc
+    from nowcastautogp_tpu_torch.models import gp_model
+
+    if path == "weekly":
+        data = cs._weekly_data(ngp, seed, 150, 160)[2]
+
+        def fit():
+            cs._weekly_fit(ngp, data, seed, n_particles)
+    elif path == "daily":
+        data = cs._daily_data(ngp, seed, 560, 28)[2]
+
+        def fit():
+            cs._daily_fit(ngp, data, seed, n_particles)
+    else:
+        raise cs.SmokeFailure(f"takes weekly or daily, not {path!r}")
+    out = {"path": path}
+    cs._sync()
+    t0 = time.time()
+    fit()
+    cs._sync()
+    out["fit_s"] = time.time() - t0
+
+    t0 = time.time()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fit()
+        cs._sync()
+    out["fit_profiled_s"] = time.time() - t0
+    rows = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    out["device_s"] = sum(e.device_time_total for e in rows) / 1e6
+    out["kernels"] = [
+        {"name": e.key[:80], "calls": e.count,
+         "device_s": e.device_time_total / 1e6} for e in rows[:12]]
+
+    timers = {}
+    patches = [(structure_mcmc, "propose_batch", "propose_batch"),
+               (structure_mcmc, "run_hmc", "hmc"),
+               (structure_mcmc, "gp_lml_batched", "proposal_lml"),
+               (gp_model, "gp_lml_batched", "reweight_lml")]
+    saved = [(m, a, getattr(m, a)) for m, a, _ in patches]
+    for m, a, key in patches:
+        setattr(m, a, _timed(timers, key, getattr(m, a)))
+    try:
+        t0 = time.time()
+        fit()
+        cs._sync()
+        out["fit_timed_s"] = time.time() - t0
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+    missing = [key for _, _, key in patches if key not in timers]
+    cs.check(not missing, f"the fit never called the timed phases {missing}")
+    out["phases_s"] = timers
+    return out
+
+
+def main():
+    path = sys.argv[1] if len(sys.argv) > 1 else ""
+    smi = cs.setup()
+    print(json.dumps({"profile": profile_fit(path)}))
+    print(smi)
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except cs.SmokeFailure as e:
+        cs.log(f"profile_fit: FAILED: {e}")
+        sys.exit(1)

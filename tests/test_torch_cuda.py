@@ -1,4 +1,4 @@
-"""The CUDA LML kernels against their plain version, on an NVIDIA card.
+"""The CUDA kernels (K1-K5) against their plain versions, on an NVIDIA card.
 
 Skipped where torch sees no CUDA device (the CPU test run); on a machine
 with a card run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from nowcastautogp_tpu_torch.models import structures as st
-from nowcastautogp_tpu_torch.ops import lml, megalml
+from nowcastautogp_tpu_torch.ops import chol_mxu, lml, megacov, megalml
 
 torch.set_num_threads(1)
 
@@ -134,6 +134,88 @@ def test_non_spd_particle_is_nan_in_its_lane_only(dev):
 
 
 def test_outside_the_envelope_raises(dev):
-    args = _batch(dev, n=72, n_active=72)
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        megalml.megalml_val(*args)
+    """n = 2080 is beyond every LML path; n = 544 takes the composed one."""
+    for n, runs in ((2080, False), (544, True)):
+        types, params, diagv, mask, x, ym = _batch(dev, n=n, n_active=n - 9)
+        log_noise = torch.full((types.shape[0],), -2.0, device=dev)
+        if not runs:
+            with pytest.raises(NotImplementedError, match="2048"):
+                lml.gp_lml_batched(types, params, log_noise, x, ym, mask)
+            continue
+        megalml.reset_launch_counts()
+        out = lml.gp_lml_batched(types, params, log_noise, x, ym, mask)
+        assert torch.isfinite(out).all()
+        assert (megalml.K1_LAUNCHES, megalml.K2_LAUNCHES) == (0, 0)
+
+
+def _spd(dev, n, n_active, seed=1):
+    """Masked A of the hand batch (well conditioned) and its target."""
+    types, params, diagv, mask, x, ym = _batch(dev, n=n, n_active=n_active,
+                                               seed=seed)
+    K = megacov.megacov_fwd_plain(types, params, x)
+    A = K * (mask[:, :, None] * mask[:, None, :]) + torch.diag_embed(diagv)
+    return (types, params, x), A.contiguous(), ym
+
+
+@pytest.mark.parametrize("n", [96, 576])
+def test_covariance_kernels_match_plain(dev, n):
+    (types, params, x), _, _ = _spd(dev, n, n - 11)
+    K = megacov.megacov_fwd(types, params, x)
+    torch.testing.assert_close(K, megacov.megacov_fwd_plain(types, params, x),
+                               rtol=1e-5, atol=1e-5)
+    dK = torch.randn(K.shape, generator=torch.Generator(dev).manual_seed(n),
+                     device=dev)
+    got = megacov.megacov_bwd(types, params, x, dK)
+    ref = megacov.megacov_bwd_plain(types, params, x, dK)
+    tol = 2e-4 if n <= 128 else 2e-3
+    torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+    assert torch.equal(got, megacov.megacov_bwd(types, params, x, dK))
+
+
+@pytest.mark.parametrize("n", [96, 576])
+def test_inverse_kernel_matches_plain(dev, n):
+    _, A, ym = _spd(dev, n, n - 11)
+    X = chol_mxu.tri_inv(A)
+    ref = chol_mxu.tri_inv_plain(A.double())
+    scale = ref.abs().amax((1, 2), keepdim=True)
+    torch.testing.assert_close(X.double() / scale, ref / scale, rtol=1e-3,
+                               atol=1e-4)
+    assert torch.equal(X, torch.tril(X))
+    assert torch.equal(X, chol_mxu.tri_inv(A))
+    bad = A.clone()
+    bad[2, 7, 7] = -1.0
+    Xb = chol_mxu.tri_inv(bad)
+    keep = torch.arange(A.shape[0], device=dev) != 2
+    assert torch.isnan(Xb[2]).any()
+    assert torch.equal(Xb[keep], X[keep])
+
+
+def test_composed_lml_runs_k4_k3_k5(dev):
+    types, params, diagv, mask, x, ym = _batch(dev, n=576, n_active=563)
+    for mod in (megacov, chol_mxu):
+        mod.reset_launch_counts()
+    p = params.clone().requires_grad_(True)
+    out = lml.lml_core(types, p, diagv, mask, x, ym)
+    out.sum().backward()
+    assert (megacov.K4_LAUNCHES, chol_mxu.K3_LAUNCHES,
+            megacov.K5_LAUNCHES) == (1, 1, 1)
+    # the plain version on the CPU in float64 (reference) and float32:
+    # at n = 576 a near-rank-one covariance (the lone Constant of particle
+    # 0) leaves float32 gradients of any inverse-based core ill
+    # conditioned, so the kernels' error is held per particle to
+    # max(tolerance, 10 x float32 plain's), as chip_smoke.py does
+    ref = {}
+    for dtype in (torch.float64, torch.float32):
+        p_ref = params.cpu().to(dtype).requires_grad_(True)
+        val = lml.lml_core(types.cpu(), p_ref, *(
+            a.cpu().to(dtype) for a in (diagv, mask, x, ym)))
+        val.sum().backward()
+        ref[dtype] = (val.detach().double(), p_ref.grad.double())
+    got = (out.detach().double().cpu(), p.grad.double().cpu())
+    for i, (rtol, atol) in enumerate(((VAL_RTOL, VAL_ATOL),
+                                      (GRAD_RTOL, GRAD_ATOL))):
+        r64, r32, k = ref[torch.float64][i], ref[torch.float32][i], got[i]
+        tol = atol + rtol * r64.abs()
+        rk = ((k - r64).abs() / tol).reshape(k.shape[0], -1).amax(1)
+        rp = ((r32 - r64).abs() / tol).reshape(k.shape[0], -1).amax(1)
+        assert bool((rk <= torch.clamp_min(10.0 * rp, 1.0)).all()), (i, rk, rp)

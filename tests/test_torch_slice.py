@@ -48,7 +48,7 @@ def _models(seed=5):
     jm = jngp.GPModel(dates[:N_TRAIN], y[:N_TRAIN],
                       config=jngp.GPConfig(max_depth=3), **kw)
     pm = GPModel(dates[:N_TRAIN], y[:N_TRAIN],
-                 config=ngp.GPConfig(max_depth=3), **kw)
+                 config=ngp.GPConfig(max_depth=3), device="cpu", **kw)
     return jm, pm
 
 
@@ -65,7 +65,7 @@ def fitted():
     """A JAX model after two reweights, and the port's copy of its state
     before them (the port then repeats the reweights itself)."""
     jm, _ = _models()
-    start = GPModel.from_jax_state(jm.to_dict())
+    start = GPModel.from_jax_state(jm.to_dict(), device="cpu")
     lml = []
     for n_k in (10, N_TRAIN):
         jm.reweight_to(n_k)
@@ -117,7 +117,7 @@ def test_add_data_and_maybe_resample_match_jax(fitted):
     forced resample draws the same ancestors from the same numpy state."""
     jm0 = fitted[0]
     jm = jngp.GPModel(jm0.to_dict())
-    pm = GPModel.from_jax_state(jm0.to_dict())
+    pm = GPModel.from_jax_state(jm0.to_dict(), device="cpu")
     dates, y = _series()
     new = (dates[N_TRAIN:N_TRAIN + 2], y[N_TRAIN:N_TRAIN + 2])
     jngp.add_data(jm, *new)
@@ -140,7 +140,7 @@ def _jax_shared_chol(jm, nowcasts, f_dates):
     """The JAX side of the deterministic shared-Cholesky quantities, built
     from its public batched LML and predictive."""
     x_row, y_rows, mask_old, mask_new = nowcast._scenario_buffers(
-        GPModel.from_jax_state(jm.to_dict()), nowcasts)
+        GPModel.from_jax_state(jm.to_dict(), device="cpu"), nowcasts)
     cap = x_row.shape[0]
 
     def rows(a):
@@ -174,7 +174,7 @@ def test_shared_chol_moments_match_jax(fitted):
     ncs = ngp.create_nowcast_data(list(draws), nc_dates)
     ref_w, ref_mu, ref_chol = _jax_shared_chol(jm, ncs, f_dates)
 
-    pm = GPModel.from_jax_state(jm.to_dict())
+    pm = GPModel.from_jax_state(jm.to_dict(), device="cpu")
     x_row, y_rows, mask_old, mask_new = nowcast._scenario_buffers(pm, ncs)
     t = pm._tensor
     log_w, mu, chol = nowcast._shared_chol_moments(
@@ -201,7 +201,7 @@ def test_forecast_draws_match_jax_in_distribution(fitted):
     D = 500
     ref = jngp.forecast_with_nowcasts(
         jm, jngp.create_nowcast_data(list(draws), nc_dates), f_dates, D)
-    pm = GPModel.from_jax_state(jm.to_dict())
+    pm = GPModel.from_jax_state(jm.to_dict(), device="cpu")
     got = ngp.forecast_with_nowcasts(
         pm, ngp.create_nowcast_data(list(draws), nc_dates), f_dates, D)
     assert got.shape == ref.shape == (HORIZON, 4 * D)
@@ -246,7 +246,7 @@ def test_hmc_prior_invariance_with_empty_mask():
     parameters stay N(0, 1) while the chains move."""
     cfg = ngp.GPConfig(max_depth=3)
     pm = GPModel(np.arange(32.0), np.zeros(32), n_particles=128, config=cfg,
-                 seed=4)
+                 seed=4, device="cpu")
     x, y, m = pm._batched_data(0)
     mu, sg, act = (pm._tensor(a) for a in prior_arrays(pm._host_types, cfg))
     noise_mu, noise_sigma, infer = pm.noise_prior
@@ -271,7 +271,7 @@ def test_hmc_prior_invariance_with_empty_mask():
 def test_unported_paths_raise():
     dates, y = _series()
     pm = GPModel(dates[:N_TRAIN], y[:N_TRAIN], n_particles=2,
-                 config=ngp.GPConfig(max_depth=2), seed=1)
+                 config=ngp.GPConfig(max_depth=2), seed=1, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ngp.fit_smc(pm, schedule=[N_TRAIN], n_mcmc=1, n_hmc=1,
                     engine="device")
@@ -282,3 +282,5 @@ def test_unported_paths_raise():
     other = ngp.create_nowcast_data([draws[0]], dates[:2])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ngp.forecast_with_nowcasts(pm, ncs[:1] + other, f_dates, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ngp.forecast(pm, f_dates, 2, forecast_n_hmc=1)
