@@ -33,12 +33,26 @@ Phases (any failure exits nonzero before the final line):
    200-particle depth-5 fit on 560 days (capacities 96 ... 576: K1/K2 up to
    512, the composed K4 -> K3 -> K5 path at 576; 8 moves x 5 HMC x 5
    leapfrog per step) and a 28-day, 2000-draw ``forecast`` -- scored the
-   same way.
+   same way;
+5. "pallas": phase 3's weekly fit under ``set_lml_backend("pallas")`` and
+   ``set_cov_backend("pallas")`` (every covariance from K7F/K7B, the LML
+   core from K6a/K6b), then ``forecast(..., forecast_n_hmc=1)`` of the 8
+   weeks after the training window with 100 draws, scored the same way;
+   K1-K5 must not launch, and K6a/K6b/K7F/K7B launch exactly the counts
+   the schedule gives.
 
-Launch counts of every kernel are set to 0 just before phase 3 and phase 4
-and read just after each.  Prints per-phase seconds, a JSON line of
-results, the ``kernels`` line, the ``nvidia-smi`` name/power line, and last
-``{"ok": true, "device": {...}}``.
+Phase 2 also holds K6a (L, alpha), K6b (L^-1) and the core built on them
+(value and gradients) at P = 200 and n in {32, 64, 96, 128, 160, 576}
+with full and partial masks, a non-SPD lane NaN in its own lane only, and
+K7F/K7B at P = 200 at (160, 160), (160, 8), (8, 8), (512, 512) and with
+per-particle x1 against a shared x2; all four bitwise equal over two
+launches; then times each at P = 200, n = 160 (K7F also at (160, 8))
+beside its plain version and, for K6a/K6b, the library call.
+
+Launch counts of every kernel are set to 0 just before phases 3, 4 and 5
+(and before phase 5's forecast) and read just after each.  Prints
+per-phase seconds, a JSON line of results, the ``kernels`` line, the
+``nvidia-smi`` name/power line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -124,17 +138,19 @@ def setup():
 
 
 def _counters():
-    from nowcastautogp_tpu_torch.ops import chol_mxu, megacov, megalml
+    from nowcastautogp_tpu_torch.ops import chol, chol_mxu, cov, megacov, megalml
 
     return {"K1": megalml.K1_LAUNCHES, "K2": megalml.K2_LAUNCHES,
             "K3": chol_mxu.K3_LAUNCHES, "K4": megacov.K4_LAUNCHES,
-            "K5": megacov.K5_LAUNCHES}
+            "K5": megacov.K5_LAUNCHES, "K6a": chol.K6A_LAUNCHES,
+            "K6b": chol.K6B_LAUNCHES, "K7F": cov.K7F_LAUNCHES,
+            "K7B": cov.K7B_LAUNCHES}
 
 
 def _reset_counters():
-    from nowcastautogp_tpu_torch.ops import chol_mxu, megacov, megalml
+    from nowcastautogp_tpu_torch.ops import chol, chol_mxu, cov, megacov, megalml
 
-    for mod in (megalml, megacov, chol_mxu):
+    for mod in (megalml, megacov, chol_mxu, chol, cov):
         mod.reset_launch_counts()
 
 
@@ -464,6 +480,169 @@ def cov_inverse_parity():
     return err
 
 
+def _scaled(t):
+    """Divide each particle's entries by the largest |entry| of ``t``."""
+    return t.abs().flatten(1).amax(1).reshape(-1, *[1] * (t.dim() - 1))
+
+
+def chol_parity():
+    """Hold K6a (L, alpha), K6b (L^-1) and the "pallas" LML core built on
+    them (value and gradients dK, dym) against their plain versions at
+    P = 200 and the weekly fit's capacities 32 ... 160, and at 576, with
+    full and partial masks.  A is K4's covariance, masked, in float32: the
+    float64 reference factors the same A, which isolates K6's error.
+    Returns max abs errors (L and L^-1 relative to each particle's largest
+    entry)."""
+    import torch
+
+    from nowcastautogp_tpu_torch.ops import chol, megacov
+
+    def core_and_grads(A, ym, fn):
+        A = A.clone().requires_grad_(True)
+        y = ym.clone().requires_grad_(True)
+        val = fn(A, y)
+        ok = torch.isfinite(val)
+        gA, gy = torch.autograd.grad(torch.where(ok, val, 0.0).sum(), (A, y))
+        return (val.detach()[:, None], gA, gy), ok
+
+    def plain_core(A, y):
+        L, alpha = chol.chol_solve_plain(A, y)
+        logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+        return -0.5 * ((y * alpha).sum(-1) + logdet)
+
+    err = {"K6a": 0.0, "K6b": 0.0}
+    for n in (32, 64, 96, 128, 160, 576):
+        for n_active in (n, n - 19):
+            name = f"prior P=200 n={n} active={n_active}"
+            types, params, diagv, mask, x, ym = _population(
+                200, n, seed=2 * n + n_active, n_active=n_active)
+            K = megacov.megacov_fwd(types, params, x)
+            A = (K * (mask[:, :, None] * mask[:, None, :])
+                 + torch.diag_embed(diagv)).contiguous()
+            L, alpha = chol.chol_solve_batched(A, ym)
+            X = chol.tri_inverse(L)
+            _sync()
+            check(_bitwise(L, chol.chol_solve_batched(A, ym)[0])
+                  and _bitwise(alpha, chol.chol_solve_batched(A, ym)[1]),
+                  f"{name}: K6a differs between two launches")
+            check(_bitwise(X, chol.tri_inverse(L)),
+                  f"{name}: K6b differs between two launches")
+            check(torch.equal(L, torch.tril(L)) and torch.equal(X, torch.tril(X)),
+                  f"{name}: K6a/K6b output not lower triangular")
+            L32, a32 = chol.chol_solve_plain(A, ym)
+            L64, a64 = chol.chol_solve_plain(A.double(), ym.double())
+            fin = torch.isfinite(alpha).all(1)
+            check(torch.equal(fin, torch.isfinite(a32).all(1)),
+                  f"{name}: K6a and plain disagree on which lanes are finite")
+            ok = fin & torch.isfinite(a64).all(1)
+            check(bool(ok.any()), f"{name}: no finite lane")
+            sL, sa = _scaled(L64), _scaled(a64)
+            ea, ill_a = _parity(f"{name} K6a (L, alpha)", (L / sL, alpha / sa),
+                                (L32 / sL, a32 / sa), (L64 / sL, a64 / sa), ok,
+                                INV_RTOL, INV_ATOL)
+            X32 = chol.tri_inverse_plain(L)
+            X64 = chol.tri_inverse_plain(L.double())
+            sX = _scaled(X64)
+            eb, ill_b = _parity(f"{name} K6b L^-1", (X / sX,), (X32 / sX,),
+                                (X64 / sX,), ok, INV_RTOL, INV_ATOL)
+            got, okg = core_and_grads(A, ym, chol.lml_core)
+            r32, _ = core_and_grads(A, ym, plain_core)
+            r64, ok64 = core_and_grads(A.double(), ym.double(), plain_core)
+            okc = ok & okg & ok64
+            ev, _ = _parity(f"{name} K6 core value", got[:1], r32[:1],
+                            r64[:1], okc, VAL_RTOL, VAL_ATOL)
+            eg, ill_g = _parity(f"{name} K6 core gradients", got[1:], r32[1:],
+                                r64[1:], okc, GRAD_RTOL, GRAD_ATOL)
+            err["K6a"] = max(err["K6a"], ea)
+            err["K6b"] = max(err["K6b"], eb)
+            log(f"parity ok: {name}: K6a {ea:.3g}, K6b {eb:.3g} scaled; core "
+                f"value {ev:.3g}, gradients {eg:.3g} (ill lanes {ill_a}/"
+                f"{ill_b}/{ill_g})")
+
+    # a non-SPD particle: a negative pivot makes its lane NaN, only its lane
+    types, params, diagv, mask, x, ym = _population(16, 96, seed=13)
+    K = megacov.megacov_fwd(types, params, x)
+    A = (K * (mask[:, :, None] * mask[:, None, :])
+         + torch.diag_embed(diagv)).contiguous()
+    L, alpha = chol.chol_solve_batched(A, ym)
+    bad = A.clone()
+    bad[2, 50, 50] = -1.0
+    Lb, ab = chol.chol_solve_batched(bad, ym)
+    Xb, X = chol.tri_inverse(Lb), chol.tri_inverse(L)
+    keep = torch.arange(16, device=DEVICE) != 2
+    check(bool(torch.isnan(ab[2]).any() and torch.isnan(Xb[2]).any()),
+          "K6a/K6b: broken lane has no NaN")
+    check(bool(torch.isfinite(alpha).all() and torch.isfinite(X).all()),
+          "K6a/K6b: base batch not finite")
+    check(_bitwise(Lb[keep], L[keep]) and _bitwise(ab[keep], alpha[keep])
+          and _bitwise(Xb[keep], X[keep]),
+          "K6a/K6b: the broken lane changed its neighbours")
+    log("parity ok: non-SPD particle isolated in K6a and K6b; both bitwise "
+        "equal over two launches")
+    return err
+
+
+def cov_fused_parity():
+    """Hold K7F and K7B (random asymmetric cotangent) against the float64
+    plain interpreter at P = 200 at the "pallas" path's shapes: the fit's
+    K(x, x) (160, 160), the forecast's K(x, xs) (160, 8) and K(xs, xs)
+    (8, 8), the largest K7 shape (512, 512), and per-particle x1 against a
+    shared x2; both bitwise equal over two launches.  Returns max abs
+    errors."""
+    import torch
+
+    from nowcastautogp_tpu_torch.ops import cov
+
+    x = torch.linspace(0, 1, 160, device=DEVICE)
+    xs = 1.0 + torch.arange(1, 9, device=DEVICE) / 159.0   # 8 weeks ahead
+    wide = torch.linspace(0, 1, 512, device=DEVICE)
+    heaps = [_population(200, 8, seed=i)[:2] for i in range(5)]
+    jit = x + 1e-3 * torch.randn(
+        (heaps[4][0].shape[0], 160), device=DEVICE,
+        generator=torch.Generator(DEVICE).manual_seed(1))
+    cases = [(f"prior P=200 {tag}", *heap, a, b) for heap, (tag, a, b) in zip(
+        heaps, (("(160, 160) K(x, x)", x, x), ("(160, 8) K(x, xs)", x, xs),
+                ("(8, 8) K(xs, xs)", xs, xs), ("(512, 512)", wide, wide),
+                ("(160, 8) per-particle x vs shared xs", jit, xs)))]
+    cases.append(("hand (160, 8) K(x, xs)", *_hand_batch(8, seed=3)[:2], x,
+                  xs))
+
+    gen = torch.Generator(DEVICE).manual_seed(2)
+    err = {"K7F": 0.0, "K7B": 0.0}
+    for name, types, params, x1, x2 in cases:
+        P, n, m = types.shape[0], x1.shape[-1], x2.shape[-1]
+
+        def plain(fn, dtype, *extra):
+            """``fn`` in ``dtype``, a chunk of particles at a time."""
+            return _chunked(fn, _chunk_for(max(n, m)), types, params.to(dtype),
+                            x1.expand(P, n).to(dtype), x2.expand(P, m).to(dtype),
+                            *(e.to(dtype) for e in extra))
+
+        K = cov.cov_fwd(types, params, x1, x2)
+        K32, K64 = (plain(cov.cov_fwd_plain, d) for d in (torch.float32,
+                                                          torch.float64))
+        ok = torch.isfinite(K64).flatten(1).all(1)
+        check(bool(ok.all()), f"{name}: float64 covariance not finite")
+        ef, _ = _parity(f"{name} K7F", (K,), (K32,), (K64,), ok, COV_RTOL,
+                        COV_ATOL)
+        dK = torch.randn((P, n, m), generator=gen, device=DEVICE)
+        g = cov.cov_bwd(types, params, x1, x2, dK)
+        g32, g64 = (plain(cov.cov_bwd_plain, d, dK) for d in (torch.float32,
+                                                              torch.float64))
+        tol = COT_TOL_SMALL if max(n, m) < 512 else COT_TOL_LARGE
+        eb, ill = _parity(f"{name} K7B (asymmetric dK)", (g,), (g32,), (g64,),
+                          ok, tol, tol)
+        check(_bitwise(K, cov.cov_fwd(types, params, x1, x2)),
+              f"{name}: K7F differs between two launches")
+        check(_bitwise(g, cov.cov_bwd(types, params, x1, x2, dK)),
+              f"{name}: K7B differs between two launches")
+        err["K7F"] = max(err["K7F"], ef)
+        err["K7B"] = max(err["K7B"], eb)
+        log(f"parity ok: {name}: K7F {ef:.3g}, K7B {eb:.3g} (ill lanes {ill})")
+    log("parity ok: K7F/K7B bitwise equal over two launches")
+    return err
+
+
 def _time_ms(fn, warmup=3, runs=20):
     import torch
 
@@ -498,40 +677,54 @@ def _bound(nbytes, ops):
                                        else "operations")
 
 
-def _bounds(types, n):
-    """Each kernel's bound at P particles of heaps ``types`` and capacity n:
-    bytes of its inputs read once and outputs written once, against the
-    operations these trees need (lower-triangle elements; Cholesky and
-    triangular inverse n^3 / 3 flops each)."""
+def _bounds(types, n, m=None):
+    """Each kernel's bound at P particles of heaps ``types`` and capacity n
+    (K7F/K7B: n x m points, shared by the particles): bytes of its inputs
+    read once and outputs written once, against the operations these trees
+    need (K4/K5: lower-triangle elements; K7F/K7B: all n m elements;
+    Cholesky and triangular inverse n^3 / 3 flops each).  A symmetric or
+    triangular input (K3/K6a's SPD matrix, K6b's factor) is read as its
+    lower triangle only; the dense (n, n) output is written in full."""
     t = types.cpu().numpy()
     P, N = t.shape
+    m = n if m is None else m
     E = n * (n + 1) / 2
     fwd = float((_ELEM_OPS + _FWD_OPS[t].sum(1)).sum())   # over particles
     bwd = float(_BWD_OPS[t].sum())
     heap = 4 * (P * N + 3 * P * N)
     chol = P * (n ** 3 / 3 + 2 * n * n)
+    tri = 4 * P * n * (n + 1) / 2 + 4 * P * n * n   # lower in, dense out
     return {
         "K1": _bound(heap + 4 * 4 * P * n + 4 * (P + 3 * P * N + 2 * P * n),
                      E * (2 * fwd + bwd + 6 * P) + chol
                      + P * 2 * n ** 3 / 3),
         "K2": _bound(heap + 4 * 4 * P * n + 4 * P, E * (fwd + 3 * P) + chol),
-        "K3": _bound(8 * P * n * n, P * 2 * n ** 3 / 3),
+        "K3": _bound(tri, P * 2 * n ** 3 / 3),
         "K4": _bound(heap + 4 * P * n + 4 * P * n * n, E * fwd),
         "K5": _bound(heap + 4 * P * n + 4 * P * n * n + 12 * P * N,
                      E * (fwd + bwd + P)),
+        "K6a": _bound(tri + 8 * P * n, chol),
+        "K6b": _bound(tri, P * n ** 3 / 3),
+        "K7F": _bound(heap + 4 * (n + m) + 4 * P * n * m, n * m * fwd),
+        "K7B": _bound(heap + 4 * (n + m) + 4 * P * n * m + 12 * P * N,
+                      n * m * (fwd + bwd + P)),
     }
 
 
 def kernel_timing():
     """ms per launch at the main paths' shapes: K1/K2 at P = 200, n = 160
     (the weekly fit's largest capacity), K3/K4/K5 at P = 200, n = 576 (the
-    daily fit's composed step); the plain versions of K4/K5 run in chunks
-    of 25 particles (their level planes would not fit at P = 200) and are
-    timed over 5 runs after 1 warm-up, as are K1/K2 at n = 512 and the
-    composed LML core at n = 576.  Returns (ms, bounds)."""
+    daily fit's composed step), K6a/K6b/K7F/K7B at P = 200, n = 160 (the
+    "pallas" path's weekly fit) and K7F at (160, 8) (its forecast's
+    K(x, xs)); the plain versions of K4/K5 run in chunks of 25 particles
+    (K7B's in chunks of 50: their level planes would not fit at P = 200)
+    and are timed over 5 runs after 1 warm-up, as are K1/K2 at n = 512 and
+    the composed LML core at n = 576.  Returns (ms, bounds)."""
     import torch
 
-    from nowcastautogp_tpu_torch.ops import chol_mxu, lml, megacov, megalml
+    from nowcastautogp_tpu_torch.ops import (
+        chol, chol_mxu, cov, lml, megacov, megalml,
+    )
 
     args = _population(200, 160, seed=7)
     ms = {
@@ -585,6 +778,46 @@ def kernel_timing():
 
     ms["composed_vag_n576"] = _time_ms(composed_value_and_grad, 1, 5)
     ms["composed_val_n576"] = _time_ms(composed_value, 1, 5)
+
+    # the "pallas" path's kernels at the weekly fit's largest shape, P = 200
+    # and n = 160, and K7F at the forecast's K(x, xs) (160, 8)
+    types, params, diagv, mask, x, ym = _population(200, 160, seed=11)
+    x1 = x[0].contiguous()
+    xs = 1.0 + torch.arange(1, 9, device=DEVICE) / 159.0
+    K = megacov.megacov_fwd(types, params, x)
+    A = (K * (mask[:, :, None] * mask[:, None, :])
+         + torch.diag_embed(diagv)).contiguous()
+    L = chol.chol_solve_batched(A, ym)[0]
+    eye = torch.eye(160, device=DEVICE).expand_as(A)
+    dK = torch.randn(K.shape, generator=torch.Generator(DEVICE).manual_seed(3),
+                     device=DEVICE)
+
+    def library_solve():
+        Lc = torch.linalg.cholesky_ex(A)[0]
+        return torch.cholesky_solve(ym[..., None], Lc)
+
+    ms.update({
+        "K6a": _time_ms(lambda: chol.chol_solve_batched(A, ym)),
+        "K6a_plain": _time_ms(lambda: chol.chol_solve_plain(A, ym)),
+        "K6a_library": _time_ms(library_solve),
+        "K6b": _time_ms(lambda: chol.tri_inverse(L)),
+        "K6b_plain": _time_ms(lambda: chol.tri_inverse_plain(L)),
+        "K6b_library": _time_ms(
+            lambda: torch.linalg.solve_triangular(L, eye, upper=False)),
+        "K7F": _time_ms(lambda: cov.cov_fwd(types, params, x1, x1)),
+        "K7F_plain": _time_ms(lambda: cov.cov_fwd_plain(types, params, x1,
+                                                        x1)),
+        "K7F_n160_m8": _time_ms(lambda: cov.cov_fwd(types, params, x1, xs)),
+        "K7F_n160_m8_plain": _time_ms(
+            lambda: cov.cov_fwd_plain(types, params, x1, xs)),
+        "K7B": _time_ms(lambda: cov.cov_bwd(types, params, x1, x1, dK)),
+        "K7B_plain": _time_ms(lambda: _chunked(
+            lambda t, p, d: cov.cov_bwd_plain(t, p, x1, x1, d), 50, types,
+            params, dK), 1, 5),
+    })
+    b160 = _bounds(types, 160)
+    bounds.update({k: b160[k] for k in ("K6a", "K6b", "K7F", "K7B")})
+    bounds["K7F_n160_m8"] = _bounds(types, 160, 8)["K7F"]
     return ms, bounds
 
 
@@ -741,9 +974,67 @@ def daily(seed=2, n_particles=200, n_train=560, horizon=28, draws=2000):
     check(fc.shape == (horizon, draws), f"forecast shape {fc.shape}")
     check(bool(np.all(np.isfinite(fc)) and np.all(fc >= 0)),
           "forecast has non-finite or negative draws")
-    for k, v in launches.items():
-        check(v > 0, f"{k} was not launched on the daily path")
+    for k in ("K1", "K2", "K3", "K4", "K5"):
+        check(launches[k] > 0, f"{k} was not launched on the daily path")
     crps, cover90 = _score(ngp, fc, obs[n_train:])
+    return {"fit_s": fit_s, "forecast_s": forecast_s, "log_crps": crps,
+            "coverage90": cover90, "fit_sha256": fit_sha256,
+            "fit_launches": fit_launches, "launches": launches}
+
+
+# ------------------------------------------------------------------ phase 5
+
+
+def pallas_weekly(seed=2, n_particles=200, n_train=150, horizon=8,
+                  draws=100):
+    """Phase 3's weekly fit under both "pallas" backends (K7F/K7B
+    covariances, the K6a/K6b core), then ``forecast`` of the 8 weeks after
+    the training window with one HMC refresh before each of 100 draws."""
+    import nowcastautogp_tpu_torch as ngp
+    from nowcastautogp_tpu_torch.ops import cov, lml
+
+    dates, obs, data, fwd, inv = _weekly_data(ngp, seed, n_train,
+                                              n_train + 2 + horizon)
+    f_dates = dates[n_train:n_train + horizon]
+    saved = lml._LML_BACKEND, cov._COV_BACKEND
+    lml.set_lml_backend("pallas")
+    cov.set_cov_backend("pallas")
+    try:
+        _reset_counters()
+        _sync()
+        t0 = time.time()
+        model = _weekly_fit(ngp, data, seed, n_particles)
+        _sync()
+        fit_s = time.time() - t0
+        fit_launches = _counters()
+        fit_sha256 = _fingerprint(model)
+        _reset_counters()
+        t0 = time.time()
+        fc = ngp.forecast(model, f_dates, draws, inv_transformation=inv,
+                          forecast_n_hmc=1)
+        _sync()
+        forecast_s = time.time() - t0
+        fc_launches = _counters()
+    finally:
+        lml.set_lml_backend(saved[0])
+        cov.set_cov_backend(saved[1])
+
+    check(fc.shape == (horizon, draws), f"forecast shape {fc.shape}")
+    check(bool(np.all(np.isfinite(fc)) and np.all(fc >= 0)),
+          "forecast has non-finite or negative draws")
+    # the fit makes phase 3's 3,640 gradient and 150 value calls, each one
+    # K7F (K(x, x)) and one K6a, a gradient also one K6b and one K7B; the
+    # forecast makes 100 draws x (1 + 5 leapfrog) gradient calls and 100
+    # predictives of 3 covariances each (K(x, x), K(x, xs), K(xs, xs))
+    for phase, got, want in (
+            ("fit", fit_launches, {"K7F": 3790, "K6a": 3790, "K6b": 3640,
+                                   "K7B": 3640}),
+            ("forecast", fc_launches, {"K7F": 900, "K6a": 600, "K6b": 600,
+                                       "K7B": 600})):
+        want = {**{k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}, **want}
+        check(got == want, f"pallas {phase} launches {got}, expected {want}")
+    crps, cover90 = _score(ngp, fc, obs[n_train:n_train + horizon])
+    launches = {k: fit_launches[k] + fc_launches[k] for k in fit_launches}
     return {"fit_s": fit_s, "forecast_s": forecast_s, "log_crps": crps,
             "coverage90": cover90, "fit_sha256": fit_sha256,
             "fit_launches": fit_launches, "launches": launches}
@@ -759,6 +1050,8 @@ def main():
     t0 = time.time()
     err = k1k2_parity()
     err.update(cov_inverse_parity())
+    err.update(chol_parity())
+    err.update(cov_fused_parity())
     phases["parity"] = time.time() - t0
     t0 = time.time()
     ms, bounds = kernel_timing()
@@ -772,6 +1065,10 @@ def main():
     dy = daily()
     phases["daily"] = time.time() - t0
     log(f"daily: {json.dumps(dy)}")
+    t0 = time.time()
+    pw = pallas_weekly()
+    phases["pallas"] = time.time() - t0
+    log(f"pallas: {json.dumps(pw)}")
     log(f"phase seconds: {json.dumps(phases)}")
 
     csrc = "nowcastautogp_tpu_torch/csrc/"
@@ -787,11 +1084,20 @@ def main():
          "pallas_megacov.py:341", "K4_plain", None),
         ("K5", "megacov_bwd_kernel (covariance VJP)", "megacov.cu",
          "pallas_megacov.py:518", "K5_plain", None),
+        ("K6a", "chol_solve_kernel (blocked Cholesky L and alpha)", "chol.cu",
+         "pallas_chol.py:204", "K6a_plain", "K6a_library"),
+        ("K6b", "tri_inverse_kernel (L^-1 from a Cholesky factor)", "chol.cu",
+         "pallas_chol.py:265", "K6b_plain", "K6b_library"),
+        ("K7F", "cov_fwd_kernel (one tree's K(x1, x2))", "cov.cu",
+         "pallas_cov.py:114", "K7F_plain", None),
+        ("K7B", "cov_bwd_kernel (VJP of K(x1, x2))", "cov.cu",
+         "pallas_cov.py:125", "K7B_plain", None),
     ]
     kernels = []
     for k, name, src, tpu_src, plain, lib in table:
         bound_ms, bound_by = bounds[k]
-        by_path = {"weekly": wk["launches"][k], "daily": dy["launches"][k]}
+        by_path = {"weekly": wk["launches"][k], "daily": dy["launches"][k],
+                   "pallas": pw["launches"][k]}
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": csrc + src,
             "replaces": tpu + tpu_src, "launches": sum(by_path.values()),
@@ -799,8 +1105,9 @@ def main():
             "ms": ms[k], "plain_ms": ms[plain], "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": ms[lib] if lib else None})
-    print(json.dumps({"phase_s": phases, "kernel_ms": ms, "weekly": wk,
-                      "daily": dy}))
+    print(json.dumps({"phase_s": phases, "kernel_ms": ms,
+                      "bounds_ms": bounds, "weekly": wk, "daily": dy,
+                      "pallas": pw}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

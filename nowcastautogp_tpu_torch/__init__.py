@@ -2,12 +2,15 @@
 
 The fit-and-forecast main paths: data transforms, the particle ensemble of
 heap-encoded kernel trees, data-annealed SMC with host structure proposals
-and batched HMC, the plain forecaster (``forecast``, ``predict_mvn``) and
-the no-refresh shared-date nowcast forecast, and CRPS/quantile scoring.
-The masked GP log marginal likelihood runs in hand-written CUDA kernels on
-an NVIDIA card (``csrc/``: the fused K1/K2 up to capacity 512, the composed
-K4 -> K3 -> K5 path up to 2048) and in their plain torch versions on the
-CPU.  Entry points run on the card unless the caller passes
+and batched HMC, the forecaster (``forecast``, ``predict_mvn``, and the
+per-draw HMC refresh ``forecast_n_hmc``) and the no-refresh shared-date
+nowcast forecast, and CRPS/quantile scoring.  The masked GP log marginal
+likelihood runs in hand-written CUDA kernels on an NVIDIA card (``csrc/``:
+by default the fused K1/K2 up to capacity 512 and the composed
+K4 -> K3 -> K5 path up to 2048; under the opt-in "pallas" LML and
+covariance backends, ``ops.lml.set_lml_backend`` and
+``ops.cov.set_cov_backend``, the covariances K7F/K7B and the blocked
+Cholesky core K6a/K6b) and in their plain torch versions on the CPU.  Entry points run on the card unless the caller passes
 ``device="cpu"``.  The port imports torch and numpy and never jax; module
 and function names follow the JAX package ``nowcastautogp_tpu``, which is
 its reference.

@@ -1,5 +1,5 @@
 // Heap-encoded kernel-tree walks shared by the LML kernels (megalml.cu,
-// K1/K2) and the batched covariance kernels (megacov.cu, K4/K5).
+// K1/K2) and the covariance kernels (megacov.cu, K4/K5; cov.cu, K7F/K7B).
 //
 // Device counterpart of nowcastautogp_tpu/ops/pallas_megacov.py's node
 // bodies (_node_fwd_body, _node_bwd_body): one element (x_i, x_j) of
@@ -201,4 +201,47 @@ __device__ __forceinline__ void load_nodes(Node* nd, int p, const int* types,
   }
 }
 
+// Block partials of the walk's 3N accumulators: warp shuffles, then the
+// warps in order, written to out[0 .. 3N).  s_red is shared scratch.
+template <int N, int WARPS>
+__device__ __forceinline__ void block_partial(float (&acc)[N][3],
+                                              float (&s_red)[WARPS][3 * N],
+                                              float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const float s = warp_sum(acc[k][q]);
+      if (lane == 0) s_red[warp][3 * k + q] = s;
+    }
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < 3 * N; q += 32 * WARPS) {
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s += s_red[w][q];
+    out[q] = s;
+  }
+}
+
 }  // namespace heapwalk
+
+// Second pass of the covariance VJPs (K5, K7B): dparams[p][q] = the sum of
+// particle p's block partials in block order, so the result does not
+// depend on the order blocks ran in.  In the unnamed namespace, which every
+// kernel source that includes this header also uses: each gets its own
+// copy.
+namespace {
+__global__ void reduce_partials_kernel(int P, int n_parts, int width,
+                                       const float* __restrict__ partial,
+                                       float* __restrict__ dparams) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= P * width) return;
+  const int p = idx / width, q = idx % width;
+  const float* src = partial + static_cast<size_t>(p) * n_parts * width + q;
+  float s = 0.0f;
+  for (int t = 0; t < n_parts; ++t) s += src[static_cast<size_t>(t) * width];
+  dparams[idx] = s;
+}
+}  // namespace

@@ -115,7 +115,6 @@ megacov_bwd_kernel(int n, const int* __restrict__ types,
   __shared__ float db[TILE][TILE + 1];   // dK[J + r][I + c]
   __shared__ float s_red[WARPS][3 * N];
   const int p = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
   int bi, bj;
   tile_coords(blockIdx.x, bi, bj);
   const int I = bi * TILE, J = bj * TILE;
@@ -151,35 +150,9 @@ megacov_bwd_kernel(int n, const int* __restrict__ types,
     }
   }
 
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      const float s = warp_sum(acc[k][q]);
-      if (lane == 0) s_red[warp][3 * k + q] = s;
-    }
-  }
-  __syncthreads();
-  float* out = partial + (static_cast<size_t>(p) * gridDim.x + blockIdx.x) * 3 * N;
-  for (int q = tid; q < 3 * N; q += THREADS) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) s += s_red[w][q];
-    out[q] = s;
-  }
-}
-
-// K5, pass 2: dparams[p][q] = sum over tiles, in tile order.
-__global__ void megacov_reduce_kernel(int P, int n_tiles, int width,
-                                      const float* __restrict__ partial,
-                                      float* __restrict__ dparams) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= P * width) return;
-  const int p = idx / width, q = idx % width;
-  const float* src = partial + static_cast<size_t>(p) * n_tiles * width + q;
-  float s = 0.0f;
-  for (int t = 0; t < n_tiles; ++t) s += src[static_cast<size_t>(t) * width];
-  dparams[idx] = s;
+  block_partial<N, WARPS>(
+      acc, s_red,
+      partial + (static_cast<size_t>(p) * gridDim.x + blockIdx.x) * 3 * N);
 }
 
 bool n_supported(int n) { return n >= 8 && n <= MAX_N && n % 8 == 0; }
@@ -207,8 +180,8 @@ int launch_bwd(int P, int n, const int* types, const float* params,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int total = P * 3 * N;
-  megacov_reduce_kernel<<<(total + 255) / 256, 256, 0, s>>>(P, T, 3 * N,
-                                                            partial, dparams);
+  reduce_partials_kernel<<<(total + 255) / 256, 256, 0, s>>>(P, T, 3 * N,
+                                                             partial, dparams);
   return static_cast<int>(cudaGetLastError());
 }
 

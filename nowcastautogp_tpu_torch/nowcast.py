@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .models.gp_model import _PAD, GPModel
-from .ops.kernels import eval_cov_batch
+from .ops.cov import cov_fn
 from .ops.lml import (
     DEFAULT_JITTER, LOG_2PI, masked_kernel_matrix, sampling_cholesky,
 )
@@ -127,7 +127,8 @@ def forecast_with_nowcasts(
     (if given) must be positive.  Only the no-refresh shared-date branch is
     ported: scenarios with different date axes, or any particle refresh
     (``n_mcmc``, ``n_hmc``, ``forecast_n_hmc``), raise
-    ``NotImplementedError``.  On that branch ``ess_threshold`` has no effect
+    ``NotImplementedError`` (``forecast_n_hmc`` runs in ``forecast``, not
+    yet per scenario here).  On that branch ``ess_threshold`` has no effect
     on the sampled mixture.  The work runs on ``base_model.device``.
     """
     nowcasts = list(nowcasts)
@@ -196,17 +197,13 @@ def _shared_chol_moments(types, params, log_noise, x, y_scen, mask_old,
         base_logw[None, :] + lml_new.T - lml_old[None, :])
 
     # predictive: covariance shared per particle, means per scenario
-    Ks = eval_cov_batch(types, params, x_b, xs_b) * mask_new[None, :, None]
-    Kss = eval_cov_batch(types, params, xs_b, xs_b)
+    Ks = cov_fn(types, params, x_b, xs_b) * mask_new[None, :, None]
+    Kss = cov_fn(types, params, xs_b, xs_b)
     V = torch.linalg.solve_triangular(L, Ks, upper=False)        # (P, cap, m)
     eye = torch.eye(m, dtype=Ks.dtype, device=Ks.device)
     noise = torch.exp(log_noise)[:, None, None]
     cov = Kss - V.transpose(-1, -2) @ V + (noise + jitter) * eye
-    # a broken particle (NaN factor, weight -1e10, never drawn) gets an
-    # identity covariance: torch's eigh raises on NaN input where JAX's
-    # returns NaN
-    finite = torch.isfinite(cov).all(-1).all(-1)[:, None, None]
-    chol_pred = sampling_cholesky(torch.where(finite, cov, eye))
+    chol_pred = sampling_cholesky(cov)
     mu = torch.einsum("pcm,pcs->pms", Ks, alpha)                 # (P, m, S)
     return log_w, mu, chol_pred
 

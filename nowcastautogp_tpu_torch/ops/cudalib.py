@@ -34,6 +34,11 @@ _SIGNATURES = {
     "megacov_bwd": [_I32, _I32, _I32] + [_PTR] * 7,
     "megacov_tiles": [_I32],
     "tri_inv": [_I32, _I32] + [_PTR] * 5,
+    "chol_solve": [_I32, _I32] + [_PTR] * 6,
+    "chol_tri_inverse": [_I32, _I32] + [_PTR] * 4,
+    "cov_fwd": [_I32] * 6 + [_PTR] * 6,
+    "cov_bwd": [_I32] * 6 + [_PTR] * 8,
+    "cov_chunks": [_I32, _I32],
 }
 
 
@@ -82,7 +87,8 @@ def build_library(verbose: bool = False) -> tuple[Path, str]:
         out, _ = proc.communicate()
         logs.append(f"== {cu.name}\n{out}")
         if proc.returncode != 0:
-            for p in procs:
+            for p in procs:  # unread pipes could block them: stop them
+                p.kill()
                 p.wait()
             raise RuntimeError(f"nvcc failed on {cu.name} ({proc.returncode}):"
                                f"\n{out}")

@@ -5,9 +5,9 @@ The level-vectorised interpreter of the JAX package's ``ops/kernels.py``
 axis: the heap is processed one level at a time, every leaf value of a level
 is one batched tensor op over the level's node axis, and internal nodes
 combine the level below by type selects.  Autograd differentiates it, so it
-is the plain covariance of the port: the forecast path runs it on every
-device, and it is the reference the LML kernels (``ops/megalml.py``) are
-held against.
+is the plain covariance of the port: the reference every covariance kernel
+is held against, and what ``ops/cov.py::cov_fn`` (the covariance backend)
+computes wherever no kernel takes the shape.
 
 Kernel semantics (unconstrained params; x is the time axis normalised to the
 training window):

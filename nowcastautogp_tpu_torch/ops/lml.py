@@ -20,6 +20,13 @@ devices, so the CPU tests run the glue the card runs:
   analytic dA = c/2 (alpha alpha^T - A^-1), dym = -c alpha;
 * beyond 2048: ``NotImplementedError``.
 
+That is the default LML backend ("auto", or "mega": the JAX package's
+names).  ``set_lml_backend("pallas")`` selects the JAX package's opt-in
+``"pallas"`` branch instead: A = ``masked_kernel_matrix`` (its K through
+``cov_fn``, so K7F/K7B under the "pallas" covariance backend and K4/K5
+under "jnp"), then the blocked Cholesky core of ``ops/chol.py`` (K6a in
+the forward, K6b in the backward).
+
 At one shape the value path and the gradient path use the same core, so
 both sides of every comparison the fit makes (MH logits, reweight deltas,
 values carried out of HMC) come from one numerical core.
@@ -29,20 +36,38 @@ from __future__ import annotations
 
 import torch
 
-from . import megalml
+from . import chol, megalml
 from .chol_mxu import mxu_supported, tri_inv
-from .kernels import eval_cov_batch
+from .cov import cov_fn
 from .megacov import MAX_MEGA_N, cov_batched
 from .megalml import cholesky_nan
 
 __all__ = [
     "masked_kernel_matrix", "gp_lml_batched", "gp_predict_batch",
     "sampling_cholesky", "lml_core", "lml_core_composed", "InvCoreFn",
-    "LOG_2PI", "DEFAULT_JITTER",
+    "set_lml_backend", "LOG_2PI", "DEFAULT_JITTER",
 ]
 
 LOG_2PI = 1.8378770664093453
 DEFAULT_JITTER = 1e-5
+
+_LML_BACKEND = "auto"
+
+
+def set_lml_backend(name: str) -> None:
+    """Select the LML backend, read at call time: "auto" or "mega" (the
+    dispatch by capacity of ``lml_core``) or "pallas" (the blocked Cholesky
+    core, K6a/K6b).  The JAX package's "jnp" would put the plain versions on
+    the card's path and is not ported."""
+    global _LML_BACKEND
+    if name == "jnp":
+        raise NotImplementedError(
+            'the "jnp" LML backend is not ported (ROADMAP.md); use "auto", '
+            '"mega" or "pallas"')
+    if name not in ("auto", "mega", "pallas"):
+        raise ValueError(f"LML backend {name!r}; expected one of "
+                         "('auto', 'mega', 'pallas')")
+    _LML_BACKEND = name
 
 
 def masked_kernel_matrix(node_types, params, log_noise, x, mask,
@@ -51,9 +76,10 @@ def masked_kernel_matrix(node_types, params, log_noise, x, mask,
 
     Batched: node_types (P, N), params (P, N, 3), log_noise (P,), x and mask
     (P, n) or a shared (n,).  Returns (P, n, n).  K(x, x) comes from
-    ``cov_batched``: K4 on the card.
+    ``cov_fn``: K4 on the card under the default covariance backend, K7F
+    under "pallas".
     """
-    K = cov_batched(node_types, params, x)
+    K = cov_fn(node_types, params, x)
     mm = mask[..., :, None] * mask[..., None, :]
     diag = mask * (torch.exp(log_noise)[:, None] + jitter) + (1.0 - mask)
     return K * mm + torch.diag_embed(diag)
@@ -133,9 +159,14 @@ def gp_lml_batched(node_types, params, log_noise, x, y, mask,
     """
     P, n = params.shape[0], x.shape[-1]
     mask = mask.expand(P, n)
-    diagv = mask * (torch.exp(log_noise)[:, None] + jitter) + (1.0 - mask)
     ym = y.expand(P, n) * mask
-    core = lml_core(node_types, params, diagv, mask, x.expand(P, n), ym)
+    if _LML_BACKEND == "pallas":
+        A = masked_kernel_matrix(node_types, params, log_noise, x, mask,
+                                 jitter)
+        core = chol.lml_core(A, ym)
+    else:
+        diagv = mask * (torch.exp(log_noise)[:, None] + jitter) + (1.0 - mask)
+        core = lml_core(node_types, params, diagv, mask, x.expand(P, n), ym)
     lml = core - 0.5 * mask.sum(-1) * LOG_2PI
     return torch.where(torch.isfinite(lml), lml, torch.full_like(lml, -1e10))
 
@@ -154,8 +185,8 @@ def gp_predict_batch(node_types, params, log_noise, x, y, mask, xs,
     mask = mask.expand(P, A.shape[-1])
     ym = (y.expand(P, A.shape[-1]) * mask)[..., None]
     alpha = torch.cholesky_solve(ym, L)                          # (P, n, 1)
-    Ks = eval_cov_batch(node_types, params, x, xs) * mask[..., :, None]
-    Kss = eval_cov_batch(node_types, params, xs, xs)
+    Ks = cov_fn(node_types, params, x, xs) * mask[..., :, None]
+    Kss = cov_fn(node_types, params, xs, xs)
     mu = (Ks.transpose(-1, -2) @ alpha)[..., 0]
     V = torch.linalg.solve_triangular(L, Ks, upper=False)
     cov = Kss - V.transpose(-1, -2) @ V
@@ -170,8 +201,13 @@ def sampling_cholesky(cov):
 
     Large-amplitude particles can make ``Kss - V^T V`` indefinite in f32;
     negative eigenvalues are clamped and ``A = V sqrt(w)`` is returned (any
-    square root samples the same Gaussian).
+    square root samples the same Gaussian).  A broken particle (a NaN
+    factor, weight -1e10, never drawn) gets an identity covariance: torch's
+    ``eigh`` raises on NaN input where JAX's returns NaN.
     """
+    eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
+    finite = torch.isfinite(cov).all(-1).all(-1)[..., None, None]
+    cov = torch.where(finite, cov, eye)
     c = 0.5 * (cov + cov.transpose(-1, -2))
     w, V = torch.linalg.eigh(c)
     scale = torch.clamp_min(w.abs().amax(-1, keepdim=True), 1.0)

@@ -3,6 +3,8 @@
 
     python3 profile_fit.py daily     # phase 4's fit (daily_200p, seed 2)
     python3 profile_fit.py weekly    # phase 3's fit (bench.py, seed 2)
+    python3 profile_fit.py pallas    # phase 5's: phase 3's fit under both
+                                     # "pallas" backends (K7F/K7B, K6a/K6b)
 
 Builds the kernel library as ``chip_smoke.py`` does, then runs the fit three
 times on one NVIDIA card: unprofiled; under ``torch.profiler`` with CUDA
@@ -40,19 +42,32 @@ def profile_fit(path, seed=2, n_particles=200):
     import nowcastautogp_tpu_torch as ngp
     from nowcastautogp_tpu_torch.inference import structure_mcmc
     from nowcastautogp_tpu_torch.models import gp_model
+    from nowcastautogp_tpu_torch.ops import cov, lml
 
     if path == "weekly":
         data = cs._weekly_data(ngp, seed, 150, 160)[2]
 
         def fit():
             cs._weekly_fit(ngp, data, seed, n_particles)
+    elif path == "pallas":
+        data = cs._weekly_data(ngp, seed, 150, 160)[2]
+
+        def fit():
+            saved = lml._LML_BACKEND, cov._COV_BACKEND
+            lml.set_lml_backend("pallas")
+            cov.set_cov_backend("pallas")
+            try:
+                cs._weekly_fit(ngp, data, seed, n_particles)
+            finally:
+                lml.set_lml_backend(saved[0])
+                cov.set_cov_backend(saved[1])
     elif path == "daily":
         data = cs._daily_data(ngp, seed, 560, 28)[2]
 
         def fit():
             cs._daily_fit(ngp, data, seed, n_particles)
     else:
-        raise cs.SmokeFailure(f"takes weekly or daily, not {path!r}")
+        raise cs.SmokeFailure(f"takes weekly, daily or pallas, not {path!r}")
     out = {"path": path}
     cs._sync()
     t0 = time.time()

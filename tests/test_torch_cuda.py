@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1-K5) against their plain versions, on an NVIDIA card.
+"""The CUDA kernels (K1-K7) against their plain versions, on an NVIDIA card.
 
 Skipped where torch sees no CUDA device (the CPU test run); on a machine
 with a card run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from nowcastautogp_tpu_torch.models import structures as st
-from nowcastautogp_tpu_torch.ops import chol_mxu, lml, megacov, megalml
+from nowcastautogp_tpu_torch.ops import (
+    chol, chol_mxu, cov, lml, megacov, megalml,
+)
 
 torch.set_num_threads(1)
 
@@ -219,3 +221,97 @@ def test_composed_lml_runs_k4_k3_k5(dev):
         rk = ((k - r64).abs() / tol).reshape(k.shape[0], -1).amax(1)
         rp = ((r32 - r64).abs() / tol).reshape(k.shape[0], -1).amax(1)
         assert bool((rk <= torch.clamp_min(10.0 * rp, 1.0)).all()), (i, rk, rp)
+
+
+@pytest.fixture
+def pallas_backends():
+    """Both "pallas" backends for one test, restored after it."""
+    saved = lml._LML_BACKEND, cov._COV_BACKEND
+    lml.set_lml_backend("pallas")
+    cov.set_cov_backend("pallas")
+    yield
+    lml._LML_BACKEND, cov._COV_BACKEND = saved
+
+
+@pytest.mark.parametrize("n,m,per1,per2", [
+    (96, 8, True, False), (40, 56, False, True), (8, 8, False, False),
+    (160, 160, True, True), (512, 512, False, False),
+])
+def test_rectangular_covariance_kernels_match_plain(dev, n, m, per1, per2):
+    types, params = _batch(dev)[:2]
+    P = types.shape[0]
+    gen = torch.Generator(dev).manual_seed(n + m)
+    x1 = torch.rand((P, n) if per1 else (n,), generator=gen,
+                    device=dev).sort(-1).values
+    x2 = 0.5 + torch.rand((P, m) if per2 else (m,), generator=gen,
+                          device=dev).sort(-1).values
+    K = cov.cov_fwd(types, params, x1, x2)
+    torch.testing.assert_close(K, cov.cov_fwd_plain(types, params, x1, x2),
+                               rtol=1e-5, atol=1e-5)
+    dK = torch.randn((P, n, m), generator=gen, device=dev)
+    got = cov.cov_bwd(types, params, x1, x2, dK)
+    ref = cov.cov_bwd_plain(types, params, x1, x2, dK)
+    tol = 2e-4 if n * m <= 160 * 160 else 2e-3
+    torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+    assert torch.equal(got, cov.cov_bwd(types, params, x1, x2, dK))
+
+
+@pytest.mark.parametrize("n", [96, 576])
+def test_cholesky_kernels_match_plain(dev, n):
+    _, A, ym = _spd(dev, n, n - 11)
+    L, alpha = chol.chol_solve_batched(A, ym)
+    L64, a64 = chol.chol_solve_plain(A.double(), ym.double())
+    assert torch.equal(L, torch.tril(L))
+    for got, ref in ((L, L64), (alpha, a64)):
+        scale = ref.abs().flatten(1).amax(1).reshape(-1, *[1] * (ref.dim() - 1))
+        torch.testing.assert_close(got.double() / scale, ref / scale,
+                                   rtol=1e-3, atol=1e-4)
+    X = chol.tri_inverse(L)
+    X64 = chol.tri_inverse_plain(L64)
+    scale = X64.abs().amax((1, 2), keepdim=True)
+    torch.testing.assert_close(X.double() / scale, X64 / scale, rtol=1e-3,
+                               atol=1e-4)
+    assert torch.equal(X, torch.tril(X))
+    again = chol.chol_solve_batched(A, ym)
+    assert torch.equal(L, again[0]) and torch.equal(alpha, again[1])
+    assert torch.equal(X, chol.tri_inverse(L))
+    bad = A.clone()
+    bad[2, 7, 7] = -1.0
+    Lb, ab = chol.chol_solve_batched(bad, ym)
+    keep = torch.arange(A.shape[0], device=dev) != 2
+    assert torch.isnan(ab[2]).any()
+    assert torch.equal(Lb[keep], L[keep]) and torch.equal(ab[keep], alpha[keep])
+    with pytest.raises(ValueError, match="multiple of 32"):
+        chol.chol_solve_batched(A[:, :40, :40].contiguous(),
+                                ym[:, :40].contiguous())
+
+
+def test_pallas_backends_run_k7_and_k6(dev, pallas_backends):
+    types, params, diagv, mask, x, ym = _batch(dev, n=160, n_active=147)
+    log_noise = torch.full((types.shape[0],), -2.0, device=dev)
+    for mod in (cov, chol, megalml, megacov):
+        mod.reset_launch_counts()
+    with torch.no_grad():
+        val = lml.gp_lml_batched(types, params, log_noise, x, ym, mask)
+    assert (cov.K7F_LAUNCHES, chol.K6A_LAUNCHES, chol.K6B_LAUNCHES,
+            cov.K7B_LAUNCHES) == (1, 1, 0, 0)
+    p = params.clone().requires_grad_(True)
+    ln = log_noise.clone().requires_grad_(True)
+    out = lml.gp_lml_batched(types, p, ln, x, ym, mask)
+    out.sum().backward()
+    assert (cov.K7F_LAUNCHES, chol.K6A_LAUNCHES, chol.K6B_LAUNCHES,
+            cov.K7B_LAUNCHES) == (2, 2, 1, 1)
+    assert (megalml.K1_LAUNCHES, megalml.K2_LAUNCHES,
+            megacov.K4_LAUNCHES) == (0, 0, 0)
+    assert torch.equal(out.detach(), val)  # one core for values and gradients
+    p_ref = params.cpu().requires_grad_(True)
+    ln_ref = log_noise.cpu().requires_grad_(True)
+    ref = lml.gp_lml_batched(types.cpu(), p_ref, ln_ref, x.cpu(), ym.cpu(),
+                             mask.cpu())
+    ref.sum().backward()
+    torch.testing.assert_close(out.detach().cpu(), ref.detach(),
+                               rtol=VAL_RTOL, atol=VAL_ATOL)
+    torch.testing.assert_close(p.grad.cpu(), p_ref.grad, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+    torch.testing.assert_close(ln.grad.cpu(), ln_ref.grad, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)

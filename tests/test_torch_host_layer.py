@@ -194,3 +194,39 @@ def test_import_loads_no_jax():
     for path in PKG.rglob("*.py"):
         for line in path.read_text().splitlines():
             assert not banned.match(line), (path, line)
+
+
+def test_failed_kernel_build_stops_the_other_compilers(tmp_path, monkeypatch):
+    """When one source fails to compile, ``build_library`` raises at once:
+    the compilers still running are stopped, never waited on while their
+    output pipes are unread (a compiler that fills its pipe would block
+    forever).  A stand-in nvcc fails on a.cu and writes 200 KB for b.cu."""
+    import threading
+
+    from nowcastautogp_tpu_torch.ops import cudalib
+
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (src / name).write_text("// stand-in source\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\ncase "$*" in\n  *a.cu*) echo "a.cu: error"; '
+                    'exit 1 ;;\n  *) head -c 200000 /dev/zero | tr "\\0" x; '
+                    'exit 0 ;;\nesac\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cudalib, "_CSRC", src)
+    monkeypatch.setattr(cudalib, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cudalib, "_nvcc", lambda: str(nvcc))
+    errors = []
+
+    def build():
+        try:
+            cudalib.build_library()
+        except RuntimeError as e:
+            errors.append(str(e))
+
+    t = threading.Thread(target=build, daemon=True)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive(), "build_library hung after a failed compile"
+    assert errors and "a.cu" in errors[0]

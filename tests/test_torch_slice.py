@@ -282,5 +282,3 @@ def test_unported_paths_raise():
     other = ngp.create_nowcast_data([draws[0]], dates[:2])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ngp.forecast_with_nowcasts(pm, ncs[:1] + other, f_dates, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ngp.forecast(pm, f_dates, 2, forecast_n_hmc=1)
