@@ -23,8 +23,9 @@ Phases (any failure exits nonzero before the final line):
    n = 2048; each of K3/K4/K5 bitwise equal over two launches; a non-SPD
    particle NaN in its own K1/K2/K3 lane only; then ms per launch (CUDA
    events, median of 20 after 3 warm-ups) of every kernel and its plain
-   version at the main paths' shapes (K1/K2 at P = 200, n = 160; K3/K4/K5
-   at P = 200, n = 576) and K3's library call;
+   version at the main paths' shapes (K1/K2 at P = 200, n = 160 and 512,
+   each beside its bound and the composed core at the same n, its
+   yardstick; K3/K4/K5 at P = 200, n = 576) and K3's library call;
 3. weekly: the ``bench.py`` workload through the port -- a 200-particle
    depth-5 SMC fit on a 150-week series (14 structure moves x 5 HMC x 5
    leapfrog per step) and a 100-scenario x 20-draw nowcast forecast --
@@ -719,7 +720,8 @@ def kernel_timing():
     K(x, xs)); the plain versions of K4/K5 run in chunks of 25 particles
     (K7B's in chunks of 50: their level planes would not fit at P = 200)
     and are timed over 5 runs after 1 warm-up, as are K1/K2 at n = 512 and
-    the composed LML core at n = 576.  Returns (ms, bounds)."""
+    the composed LML core (value + gradient, value only) at n = 160, 512
+    and 576.  Returns (ms, bounds)."""
     import torch
 
     from nowcastautogp_tpu_torch.ops import (
@@ -763,10 +765,9 @@ def kernel_timing():
                    if k in ("K3", "K4", "K5")})
 
     # the two LML paths at the daily fit's largest shapes: K1/K2 at 512,
-    # the composed core (K4 -> K3, K5 in the backward) at 576
-    args = _population(200, 512, seed=4)
-    ms["K1_n512"] = _time_ms(lambda: megalml.megalml_vag(*args), 1, 5)
-    ms["K2_n512"] = _time_ms(lambda: megalml.megalml_val(*args), 1, 5)
+    # the composed core (K4 -> K3, K5 in the backward) at 576; and the
+    # composed core at K1/K2's own shapes, n = 160 and 512, as their
+    # yardstick (the same function, decomposed)
     p = params.clone().requires_grad_(True)
 
     def composed_value_and_grad():
@@ -778,6 +779,25 @@ def kernel_timing():
 
     ms["composed_vag_n576"] = _time_ms(composed_value_and_grad, 1, 5)
     ms["composed_val_n576"] = _time_ms(composed_value, 1, 5)
+    for n, seed in ((160, 7), (512, 4)):
+        args = _population(200, n, seed=seed)
+        if n == 512:
+            ms["K1_n512"] = _time_ms(lambda: megalml.megalml_vag(*args), 1, 5)
+            ms["K2_n512"] = _time_ms(lambda: megalml.megalml_val(*args), 1, 5)
+            b512 = _bounds(args[0], 512)
+            bounds.update({"K1_n512": b512["K1"], "K2_n512": b512["K2"]})
+        pk = args[1].clone().requires_grad_(True)
+        rest = args[2:]
+
+        def yard_vag():
+            lml.lml_core_composed(args[0], pk, *rest).sum().backward()
+
+        def yard_val():
+            with torch.no_grad():
+                lml.lml_core_composed(*args)
+
+        ms[f"composed_vag_n{n}"] = _time_ms(yard_vag, 1, 5)
+        ms[f"composed_val_n{n}"] = _time_ms(yard_val, 1, 5)
 
     # the "pallas" path's kernels at the weekly fit's largest shape, P = 200
     # and n = 160, and K7F at the forecast's K(x, xs) (160, 8)
@@ -1093,6 +1113,13 @@ def main():
         ("K7B", "cov_bwd_kernel (VJP of K(x1, x2))", "cov.cu",
          "pallas_cov.py:125", "K7B_plain", None),
     ]
+    # K1/K2 also at the daily fit's n = 512, each beside the composed core
+    # (value + gradient for K1, value for K2) at its own n as the yardstick
+    extra = {k: {"yardstick_ms": ms[f"composed_{kind}_n160"],
+                 "ms_n512": ms[f"{k}_n512"],
+                 "bound_ms_n512": bounds[f"{k}_n512"][0],
+                 "yardstick_ms_n512": ms[f"composed_{kind}_n512"]}
+             for k, kind in (("K1", "vag"), ("K2", "val"))}
     kernels = []
     for k, name, src, tpu_src, plain, lib in table:
         bound_ms, bound_by = bounds[k]
@@ -1104,7 +1131,7 @@ def main():
             "launches_by_path": by_path, "max_abs_err": err[k],
             "ms": ms[k], "plain_ms": ms[plain], "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": ms[lib] if lib else None})
+            "library_ms": ms[lib] if lib else None, **extra.get(k, {})})
     print(json.dumps({"phase_s": phases, "kernel_ms": ms,
                       "bounds_ms": bounds, "weekly": wk, "daily": dy,
                       "pallas": pw}))

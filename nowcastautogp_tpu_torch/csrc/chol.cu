@@ -12,33 +12,35 @@
 // identity contract of ops/lml.py, so masked rows factor to identity rows.
 //
 // Design.  One block of 256 threads per particle, n a multiple of 32 up to
-// 2048, on the blocked Cholesky of chol_blocked.cuh (shared with K3):
-//   K6a copies K into L and factors it in place, storing the factored
-//       diagonal blocks and each one's inverse Dinv_k (workspace D, n x 32),
-//       then zeroes the strict upper triangle (scratch of the trailing
-//       updates).  The two triangular solves run on a right-hand side held
-//       in shared memory: forward, z_k = Dinv_k r_k (warp 0), then the rows
-//       below take r_i -= L[i, block k] z_k (one warp a row); backward,
-//       alpha_k = Dinv_k^T r_k, then r_j -= L[block k, j]^T alpha_k for the
-//       columns j before the block (one thread a column, coalesced).
+// 2048, on the blocked engine of chol_blocked.cuh (shared with K3 and
+// K1/K2):
+//   K6a factors K into L with the left-looking blocked Cholesky, storing
+//       the factored diagonal blocks and each one's inverse Dinv_k
+//       (workspace D, n x 32), with the forward solve riding along on a
+//       right-hand side held in shared memory (z_k = L_kk^-1 r_k by
+//       substitution, then the panel solve pushes r_i -= L[i, block k] z_k
+//       into the rows below);
+//       then it zeroes the strict upper triangle and runs the engine's
+//       blocked back substitution for alpha = L^-T r.
 //   K6b inverts each diagonal block of L (warp 0) into D, then runs the
-//       blocked triangular inverse of K3 from L's panels.
+//       blocked inverse of K3 from L's panels into X as XT = L^-T and
+//       transposes it in place.
 // The TPU kernels kept a whole chunk of particles in VMEM and swept it with
-// one-hot masked vector ops; here a particle is a block and every step is
-// an FMA loop over its own rows.
+// one-hot masked vector ops; here a particle is a block and the panel
+// products are the engine's 128 x 32 tiles on the float64 tensor cores.
 //
 // What bounds them.  K6a does n^3 / 3 flops of factorisation and 2 n^2 of
 // solves a particle against P (n^2 + 2 n) floats read and written, K6b
-// n^3 / 3 against 2 P n^2: both are arithmetic-bound on paper, and with one
-// block per particle the 2 x 32 dependent diagonal steps per panel and the
-// block barriers are serial latency that idles most warps.  Everything is
-// per particle in a fixed order, so both kernels are deterministic.
+// n^3 / 3 against 2 P n^2: both are arithmetic-bound on paper; at the
+// "pallas" path's n = 160 a particle is five panels, so warp 0's serial
+// 32 x 32 diagonal steps and the block barriers are most of the time.
+// Everything is per particle in a fixed order, so both kernels are
+// deterministic.
 //
 // A non-positive pivot makes sqrtf return NaN; it spreads through that
 // particle's L, alpha and X only, and the caller's -1e10 guard rejects it.
 
 #include "chol_blocked.cuh"
-#include "heapwalk.cuh"
 
 namespace {
 
@@ -46,81 +48,37 @@ using namespace cholblk;
 
 constexpr int MAX_N = 2048;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 chol_solve_kernel(int n, const float* __restrict__ K,
                   const float* __restrict__ ym, float* __restrict__ L,
                   float* __restrict__ alpha, float* __restrict__ Dk) {
-  __shared__ Smem sm;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem);
   __shared__ float r[MAX_N];
   const int p = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const size_t nn = static_cast<size_t>(n) * n;
-  const float* Kp = K + p * nn;
   float* Lp = L + p * nn;
   float* D = Dk + static_cast<size_t>(p) * n * B;
-  const int nb = n / B;
 
-  for (int i = warp; i < n; i += WARPS) {
-    const size_t o = static_cast<size_t>(i) * n;
-    for (int j = lane; j < n; j += 32) Lp[o + j] = Kp[o + j];
-  }
   for (int i = tid; i < n; i += THREADS) r[i] = ym[static_cast<size_t>(p) * n + i];
   __syncthreads();
-  blocked_cholesky<true>(sm, Lp, D, n);
-  __syncthreads();
+  blocked_cholesky(sm, K + p * nn, Lp, D, n, r);  // r = L^-1 ym
   for (int i = warp; i < n; i += WARPS) {
     const size_t o = static_cast<size_t>(i) * n;
     for (int j = i + 1 + lane; j < n; j += 32) Lp[o + j] = 0.0f;
   }
   __syncthreads();
 
-  // forward: L z = ym, block by block, pushing each z_k down
-  for (int kb = 0; kb < nb; ++kb) {
-    const int s = kb * B, t = s + B;
-    if (warp == 0) {
-      const float* Dr = D + static_cast<size_t>(s + lane) * B;
-      float z = 0.0f;
-#pragma unroll 8
-      for (int j = 0; j < B; ++j) z = fmaf(Dr[j], r[s + j], z);
-      __syncwarp();
-      r[s + lane] = z;
-    }
-    __syncthreads();
-    for (int i = t + warp; i < n; i += WARPS) {
-      const float v = heapwalk::warp_sum(
-          Lp[static_cast<size_t>(i) * n + s + lane] * r[s + lane]);
-      if (lane == 0) r[i] -= v;
-    }
-    __syncthreads();
-  }
-  // backward: L^T alpha = z, last block first, pushing each alpha_k up
-  for (int kb = nb - 1; kb >= 0; --kb) {
-    const int s = kb * B;
-    if (warp == 0) {
-      float a = 0.0f;
-#pragma unroll 8
-      for (int j = 0; j < B; ++j)
-        a = fmaf(D[static_cast<size_t>(s + j) * B + lane], r[s + j], a);
-      __syncwarp();
-      r[s + lane] = a;
-    }
-    __syncthreads();
-    for (int j = tid; j < s; j += THREADS) {
-      float v = 0.0f;
-#pragma unroll 8
-      for (int i = 0; i < B; ++i)
-        v = fmaf(Lp[static_cast<size_t>(s + i) * n + j], r[s + i], v);
-      r[j] -= v;
-    }
-    __syncthreads();
-  }
+  back_substitute(sm, Lp, r, n);  // r = L^-T L^-1 ym
   for (int i = tid; i < n; i += THREADS) alpha[static_cast<size_t>(p) * n + i] = r[i];
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 tri_inverse_kernel(int n, const float* __restrict__ L, float* __restrict__ X,
                    float* __restrict__ Dk) {
-  __shared__ Smem sm;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem);
   const int p = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const size_t nn = static_cast<size_t>(n) * n;
@@ -129,10 +87,6 @@ tri_inverse_kernel(int n, const float* __restrict__ L, float* __restrict__ X,
   float* D = Dk + static_cast<size_t>(p) * n * B;
   const int nb = n / B;
 
-  for (int i = warp; i < n; i += WARPS) {
-    const size_t o = static_cast<size_t>(i) * n;
-    for (int j = lane; j < n; j += 32) Xp[o + j] = (i == j) ? 1.0f : 0.0f;
-  }
   for (int kb = 0; kb < nb; ++kb) {
     const int s = kb * B;
     for (int e = tid; e < B * B; e += THREADS) {
@@ -148,6 +102,7 @@ tri_inverse_kernel(int n, const float* __restrict__ L, float* __restrict__ X,
     }
   }
   blocked_tri_inverse(sm, Lp, D, Xp, n);
+  upper_to_lower(sm, Xp, n);
 }
 
 bool n_supported(int n) { return n >= B && n <= MAX_N && n % B == 0; }
@@ -160,7 +115,9 @@ bool n_supported(int n) { return n >= B && n <= MAX_N && n % B == 0; }
 extern "C" int chol_solve(int P, int n, const float* K, const float* ym,
                           float* L, float* alpha, float* dws, void* stream) {
   if (P <= 0 || !n_supported(n)) return static_cast<int>(cudaErrorInvalidValue);
-  chol_solve_kernel<<<P, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  static const cudaError_t attr = set_smem_limit(chol_solve_kernel, sizeof(Smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  chol_solve_kernel<<<P, THREADS, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
       n, K, ym, L, alpha, dws);
   return static_cast<int>(cudaGetLastError());
 }
@@ -168,7 +125,9 @@ extern "C" int chol_solve(int P, int n, const float* K, const float* ym,
 extern "C" int chol_tri_inverse(int P, int n, const float* L, float* X,
                                 float* dws, void* stream) {
   if (P <= 0 || !n_supported(n)) return static_cast<int>(cudaErrorInvalidValue);
-  tri_inverse_kernel<<<P, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  static const cudaError_t attr = set_smem_limit(tri_inverse_kernel, sizeof(Smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  tri_inverse_kernel<<<P, THREADS, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
       n, L, X, dws);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,22 +7,25 @@
 // One output carries the whole composed LML core (ops/lml.py's InvCoreFn):
 // logdet A = -2 sum log diag X, A^-1 = X^T X, alpha = A^-1 ym.
 //
-// Design.  One block of 256 threads per particle, n a multiple of 32.  The
-// factor is built in a per-particle workspace W (a copy of A) by the
-// blocked right-looking Cholesky of chol_blocked.cuh (shared with K6a/K6b),
-// which keeps each diagonal factor block's inverse in the workspace D
-// (n x 32); then the blocked triangular inverse runs in place in X
-// (initialised to I).  The trailing downdates and the inverse updates are
-// the O(n^3) work: 64 x 64 output tiles with K = 32 in FP32 FMAs.  Where
-// the TPU kernel gave these products to its matrix unit, this kernel
-// computes them itself.
+// Design.  One block of 256 threads per particle, n a multiple of 32, on
+// the engine of chol_blocked.cuh (shared with K1/K2 and K6a/K6b): the
+// left-looking blocked Cholesky reads A and writes the factor into the
+// per-particle workspace W (no separate copy pass), keeping each diagonal
+// factor block's inverse in D (n x 32); the blocked inverse then builds
+// XT = L^-T in X, and a last pass transposes it in place.  The TPU kernel
+// gave the panel products to its matrix unit; here they are the engine's
+// 128 x 32 tiles on the float64 tensor cores (DMMA), which keep the digits
+// the composed core's gradient needs on ill-conditioned particles.
 //
 // What bounds it.  (2/3) n^3 flops a particle against 2 P n^2 floats moved,
-// so its floor is arithmetic.  With one block per particle the diagonal
-// steps are serial latency (2 x 32 dependent steps on one warp per panel,
-// n / 32 panels), and every block barrier idles the other warps; the tiled
-// products run from shared memory at a 4 x 4 register tile, well below the
-// FP32 peak.  Everything is per particle, so the result is deterministic.
+// so its floor is arithmetic (0.380 ms at P = 200, n = 576 on the FP32
+// peak; the float64 tensor cores' peak, 67 TFLOP/s, is the same).  The
+// products run with the next k chunk's loads in flight; what stays serial
+// is warp 0's 32 x 32 diagonal factor and inverse per panel (n / 32 of
+// them) and the substitutions, which the second block on the SM (54 KB of
+// shared memory and at most 128 registers a block) overlaps.  200 particles fill 200 of the 264 block slots, so 68
+// SMs carry two.  Everything is per particle, so the result is
+// deterministic.
 //
 // A non-positive pivot makes sqrtf return NaN (a zero one, inf and then
 // NaN); it spreads through that particle's W, D and X only, and the
@@ -36,28 +39,18 @@ using namespace cholblk;
 
 constexpr int MAX_N = 1024;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 tri_inv_kernel(int n, const float* __restrict__ A, float* __restrict__ X,
                float* __restrict__ Wk, float* __restrict__ Dk) {
-  __shared__ Smem sm;
-  const int p = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem);
   const size_t nn = static_cast<size_t>(n) * n;
-  const float* Ap = A + p * nn;
-  float* Xp = X + p * nn;
+  const size_t p = blockIdx.x;
   float* W = Wk + p * nn;
-  float* D = Dk + static_cast<size_t>(p) * n * B;
-
-  for (int i = warp; i < n; i += WARPS) {
-    const size_t o = static_cast<size_t>(i) * n;
-    for (int j = lane; j < n; j += 32) {
-      W[o + j] = Ap[o + j];
-      Xp[o + j] = (i == j) ? 1.0f : 0.0f;
-    }
-  }
-  __syncthreads();
-  blocked_cholesky<false>(sm, W, D, n);
-  blocked_tri_inverse(sm, W, D, Xp, n);
+  float* Xp = X + p * nn;
+  blocked_cholesky(sm, A + p * nn, W, Dk + p * n * B, n, nullptr);
+  blocked_tri_inverse(sm, W, Dk + p * n * B, Xp, n);
+  upper_to_lower(sm, Xp, n);
 }
 
 }  // namespace
@@ -69,7 +62,9 @@ extern "C" int tri_inv(int P, int n, const float* A, float* X, float* ws,
                        float* dws, void* stream) {
   if (P <= 0 || n < B || n > MAX_N || n % B != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  tri_inv_kernel<<<P, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  static const cudaError_t attr = set_smem_limit(tri_inv_kernel, sizeof(Smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  tri_inv_kernel<<<P, THREADS, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
       n, A, X, ws, dws);
   return static_cast<int>(cudaGetLastError());
 }

@@ -144,9 +144,14 @@ class CholCoreFn(torch.autograd.Function):
     def backward(ctx, g):
         L, alpha = ctx.saved_tensors
         Kinv = chol_inverse_batched(L)
-        dK = (0.5 * g)[:, None, None] * (alpha[:, :, None] * alpha[:, None, :]
-                                         - Kinv)
-        return dK, -g[:, None] * alpha
+        # alpha alpha^T - K^-1 cancels to a small matrix; on a near-rank-one
+        # K its entries are nearly equal, so float32 products and differences
+        # round them all the same way and the covariance VJP's sum over n^2
+        # entries carries that bias.  Form it in float64, round once.
+        a = alpha.double()
+        dK = ((0.5 * g.double())[:, None, None]
+              * (a[:, :, None] * a[:, None, :] - Kinv.double()))
+        return dK.to(alpha.dtype), -g[:, None] * alpha
 
 
 def lml_core(K, ym):

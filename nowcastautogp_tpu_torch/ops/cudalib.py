@@ -28,8 +28,9 @@ _LIB = None
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 # C entry points: (argument types), all returning a cudaError_t as int
 _SIGNATURES = {
-    "megalml_val": [_I32, _I32, _I32] + [_PTR] * 9,
-    "megalml_vag": [_I32, _I32, _I32] + [_PTR] * 13,
+    "megalml_val": [_I32, _I32, _I32] + [_PTR] * 10,
+    "megalml_vag": [_I32, _I32, _I32] + [_PTR] * 15,
+    "megalml_tiles": [_I32],
     "megacov_fwd": [_I32, _I32, _I32] + [_PTR] * 5,
     "megacov_bwd": [_I32, _I32, _I32] + [_PTR] * 7,
     "megacov_tiles": [_I32],

@@ -10,7 +10,9 @@ diag(diagv)``.  It is the fit's LML core up to capacity 512:
   ``csrc/megalml.cu``.  Its forward launches K1 (value and all gradients)
   when ``params``, ``diagv`` or ``ym`` need a gradient and K2 (value only)
   otherwise; its backward rescales K1's saved gradients, so a gradient
-  evaluation costs one kernel launch;
+  evaluation costs one K1 call (the factorisation kernel, then the
+  backward walk over lower tiles and its fixed-order tile sum, counted
+  once);
 * any other device raises.
 
 On the card there is no fallback: a kernel that does not build, or a shape
@@ -113,12 +115,15 @@ def megalml_val(types, params, diagv, mask, x, ym):
     global K2_LAUNCHES
     P, N, n = _check_inputs(types, params, diagv, mask, x, ym)
     lib = library()
-    core = torch.empty(P, dtype=torch.float32, device=types.device)
-    ws = torch.empty((P, n, n), dtype=torch.float32, device=types.device)
-    stream = torch.cuda.current_stream(types.device).cuda_stream
+    dev = types.device
+    core = torch.empty(P, dtype=torch.float32, device=dev)
+    ws = torch.empty((P, n, n), dtype=torch.float32, device=dev)
+    dws = torch.empty((P, n, 32), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.megalml_val(N, P, n, types.data_ptr(), params.data_ptr(),
                          diagv.data_ptr(), mask.data_ptr(), x.data_ptr(),
-                         ym.data_ptr(), core.data_ptr(), ws.data_ptr(), stream)
+                         ym.data_ptr(), core.data_ptr(), ws.data_ptr(),
+                         dws.data_ptr(), stream)
     raise_on(rc, "K2 megalml_val")
     K2_LAUNCHES += 1
     return core
@@ -137,12 +142,16 @@ def megalml_vag(types, params, diagv, mask, x, ym):
     alpha = torch.empty((P, n), dtype=torch.float32, device=dev)
     ws1 = torch.empty((P, n, n), dtype=torch.float32, device=dev)
     ws2 = torch.empty((P, n, n), dtype=torch.float32, device=dev)
+    dws = torch.empty((P, n, 32), dtype=torch.float32, device=dev)
+    partial = torch.empty((P, lib.megalml_tiles(n), 3 * N),
+                          dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.megalml_vag(N, P, n, types.data_ptr(), params.data_ptr(),
                          diagv.data_ptr(), mask.data_ptr(), x.data_ptr(),
                          ym.data_ptr(), core.data_ptr(), dparams.data_ptr(),
                          gdiag.data_ptr(), alpha.data_ptr(), ws1.data_ptr(),
-                         ws2.data_ptr(), stream)
+                         ws2.data_ptr(), dws.data_ptr(), partial.data_ptr(),
+                         stream)
     raise_on(rc, "K1 megalml_vag")
     K1_LAUNCHES += 1
     return core, dparams, gdiag, alpha

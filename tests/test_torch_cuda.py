@@ -94,6 +94,37 @@ def test_gradient_kernel_matches_autograd_of_plain(dev):
         torch.testing.assert_close(got, ref, rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
+def _within_per_particle_rule(got, r32, r64, rtol, atol, factor=10.0):
+    """chip_smoke's rule: each particle's error / tolerance against float64
+    is at most max(1, factor x float32 plain's)."""
+    k, p32, p64 = (t.double().reshape(t.shape[0], -1) for t in (got, r32, r64))
+    tol = atol + rtol * p64.abs()
+    rk = ((k - p64).abs() / tol).amax(1)
+    rp = ((p32 - p64).abs() / tol).amax(1)
+    return bool((rk <= torch.clamp_min(factor * rp, 1.0)).all())
+
+
+@pytest.mark.parametrize("n", [96, 160, 512])
+def test_gradient_kernel_matches_float64_plain_per_particle(dev, n):
+    """K1 on the blocked engine at the weekly (96, 160) and daily (512)
+    capacities: value and gradients against the float64 plain version, the
+    value bitwise K2's, and two launches bitwise equal."""
+    args = _batch(dev, n=n, n_active=n - 13, seed=n)
+    got = megalml.megalml_vag(*args)
+    again = megalml.megalml_vag(*args)
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(got[0].view(torch.int32),
+                       megalml.megalml_val(*args).view(torch.int32))
+    ref32 = _plain(args)
+    ref64 = _plain(tuple(a.double() if a.is_floating_point() else a
+                         for a in args))
+    assert _within_per_particle_rule(got[0], ref32[0], ref64[0], VAL_RTOL,
+                                     VAL_ATOL)
+    for g, r32, r64 in zip(got[1:], ref32[1:], ref64[1:]):
+        assert _within_per_particle_rule(g, r32, r64, GRAD_RTOL, GRAD_ATOL)
+
+
 def test_autograd_function_picks_the_kernel(dev):
     types, params, diagv, mask, x, ym = _batch(dev)
     log_noise = torch.full((types.shape[0],), -2.0, device=dev)
@@ -174,7 +205,7 @@ def test_covariance_kernels_match_plain(dev, n):
     assert torch.equal(got, megacov.megacov_bwd(types, params, x, dK))
 
 
-@pytest.mark.parametrize("n", [96, 576])
+@pytest.mark.parametrize("n", [96, 576, 1024])
 def test_inverse_kernel_matches_plain(dev, n):
     _, A, ym = _spd(dev, n, n - 11)
     X = chol_mxu.tri_inv(A)
