@@ -21,11 +21,13 @@ Phases (any failure exits nonzero before the final line):
    n in {96, 160, 576} (160: the nowcast's K(x, x); 576: the daily
    composed step and forecast) and at P = 4, n = 1024, K4/K5 also at
    n = 2048; each of K3/K4/K5 bitwise equal over two launches; a non-SPD
-   particle NaN in its own K1/K2/K3 lane only; then ms per launch (CUDA
-   events, median of 20 after 3 warm-ups) of every kernel and its plain
-   version at the main paths' shapes (K1/K2 at P = 200, n = 160 and 512,
-   each beside its bound and the composed core at the same n, its
-   yardstick; K3/K4/K5 at P = 200, n = 576) and K3's library call;
+   particle NaN in its own K1/K2/K3 lane only; then ms per launch of every
+   kernel by the device's clock (20 launches captured in a CUDA graph,
+   replayed between events) and one call at a time (``host_ms``), and of
+   its plain version over back-to-back calls, at the main paths' shapes
+   (K1/K2 at P = 200, n = 160 and 512, each beside its bound and the
+   composed core at the same n, its yardstick; K3/K4/K5 at P = 200,
+   n = 576) and K3's library call;
 3. weekly: the ``bench.py`` workload through the port -- a 200-particle
    depth-5 SMC fit on a 150-week series (14 structure moves x 5 HMC x 5
    leapfrog per step) and a 100-scenario x 20-draw nowcast forecast --
@@ -45,10 +47,15 @@ Phases (any failure exits nonzero before the final line):
 Phase 2 also holds K6a (L, alpha), K6b (L^-1) and the core built on them
 (value and gradients) at P = 200 and n in {32, 64, 96, 128, 160, 576}
 with full and partial masks, a non-SPD lane NaN in its own lane only, and
-K7F/K7B at P = 200 at (160, 160), (160, 8), (8, 8), (512, 512) and with
-per-particle x1 against a shared x2; all four bitwise equal over two
-launches; then times each at P = 200, n = 160 (K7F also at (160, 8))
-beside its plain version and, for K6a/K6b, the library call.
+K7F/K7B at P = 200 on the symmetric path (x2 is x1: (32, 32), (96, 96),
+(160, 160), (512, 512), (8, 8), per-particle x) and the general one
+((160, 8), per-particle x1 against a shared x2, and (160, 160) with x2 a
+copy of x1, whose K7F must be bitwise the symmetric path's), on the hand
+batch, and on depth-6 heaps holding every heap class; all four kernels
+bitwise equal over two launches; then times each at P = 200, n = 160
+(K7F also at (160, 8), (8, 8) and (512, 512), K7B at (512, 512)) beside
+its plain version and, for K6a/K6b, the library call.  Phase 5 logs the
+fitted ensemble's heap classes.
 
 Launch counts of every kernel are set to 0 just before phases 3, 4 and 5
 (and before phase 5's forecast) and read just after each.  Prints
@@ -583,35 +590,63 @@ def chol_parity():
     return err
 
 
+def _class_histogram(types):
+    """{heap class: particles} of ``types`` by the kernels' rule."""
+    from nowcastautogp_tpu_torch.ops.cov import heap_class
+
+    c = heap_class(types).cpu()
+    return {int(k): int((c == k).sum()) for k in c.unique()}
+
+
 def cov_fused_parity():
     """Hold K7F and K7B (random asymmetric cotangent) against the float64
-    plain interpreter at P = 200 at the "pallas" path's shapes: the fit's
-    K(x, x) (160, 160), the forecast's K(x, xs) (160, 8) and K(xs, xs)
-    (8, 8), the largest K7 shape (512, 512), and per-particle x1 against a
-    shared x2; both bitwise equal over two launches.  Returns max abs
-    errors."""
+    plain interpreter at P = 200 at the "pallas" path's shapes, on both
+    paths: the symmetric one (x2 is x1: the fit's K(x, x) at capacities 32,
+    96 and 160, the forecast's K(xs, xs) (8, 8), the largest shape
+    (512, 512), per-particle x) and the general one (K(x, xs) (160, 8),
+    per-particle x against shared xs, and (160, 160) with x2 a copy of x1
+    in another buffer, whose K7F must be bitwise the symmetric path's);
+    the hand batch (all 8 node types) on both; depth-6 heaps in which every
+    heap class 1 ... 63 appears.  Both kernels bitwise equal over two
+    launches.  Returns max abs errors."""
     import torch
 
     from nowcastautogp_tpu_torch.ops import cov
 
     x = torch.linspace(0, 1, 160, device=DEVICE)
     xs = 1.0 + torch.arange(1, 9, device=DEVICE) / 159.0   # 8 weeks ahead
-    wide = torch.linspace(0, 1, 512, device=DEVICE)
-    heaps = [_population(200, 8, seed=i)[:2] for i in range(5)]
+    heaps = [_population(200, 8, seed=i)[:2] for i in range(8)]
     jit = x + 1e-3 * torch.randn(
-        (heaps[4][0].shape[0], 160), device=DEVICE,
+        (heaps[6][0].shape[0], 160), device=DEVICE,
         generator=torch.Generator(DEVICE).manual_seed(1))
-    cases = [(f"prior P=200 {tag}", *heap, a, b) for heap, (tag, a, b) in zip(
-        heaps, (("(160, 160) K(x, x)", x, x), ("(160, 8) K(x, xs)", x, xs),
-                ("(8, 8) K(xs, xs)", xs, xs), ("(512, 512)", wide, wide),
-                ("(160, 8) per-particle x vs shared xs", jit, xs)))]
-    cases.append(("hand (160, 8) K(x, xs)", *_hand_batch(8, seed=3)[:2], x,
-                  xs))
+    hand = _hand_batch(8, seed=3)[:2]
+    deep = _population(200, 8, seed=0, depth=6)[:2]
+    check(set(_class_histogram(deep[0])) == {1, 3, 7, 15, 31, 63},
+          f"depth-6 population lacks a heap class: "
+          f"{_class_histogram(deep[0])}")
+    pts = {n: torch.linspace(0, 1, n, device=DEVICE) for n in (32, 96, 512)}
+    cases = [  # (name, heaps, x1, x2); x2 is x1 takes the symmetric path
+        ("prior (160, 160) K(x, x)", heaps[0], x, x),
+        ("prior (160, 160) x2 a copy of x1", heaps[0], x, x.clone()),
+        ("prior (32, 32) K(x, x)", heaps[1], pts[32], pts[32]),
+        ("prior (96, 96) K(x, x)", heaps[2], pts[96], pts[96]),
+        ("prior (512, 512) K(x, x)", heaps[3], pts[512], pts[512]),
+        ("prior (160, 8) K(x, xs)", heaps[4], x, xs),
+        ("prior (8, 8) K(xs, xs)", heaps[5], xs, xs),
+        ("prior (160, 160) per-particle x, symmetric", heaps[6], jit, jit),
+        ("prior (160, 8) per-particle x vs shared xs", heaps[7], jit, xs),
+        ("hand (160, 160) K(x, x)", hand, x, x),
+        ("hand (160, 160) x2 a copy of x1", hand, x, x.clone()),
+        ("hand (160, 8) K(x, xs)", hand, x, xs),
+        ("depth-6 every class (96, 96) K(x, x)", deep, pts[96], pts[96]),
+    ]
 
     gen = torch.Generator(DEVICE).manual_seed(2)
     err = {"K7F": 0.0, "K7B": 0.0}
-    for name, types, params, x1, x2 in cases:
+    K_sym = {}
+    for name, (types, params), x1, x2 in cases:
         P, n, m = types.shape[0], x1.shape[-1], x2.shape[-1]
+        sym = cov._symmetric(x1, x2)
 
         def plain(fn, dtype, *extra):
             """``fn`` in ``dtype``, a chunk of particles at a time."""
@@ -637,14 +672,61 @@ def cov_fused_parity():
               f"{name}: K7F differs between two launches")
         check(_bitwise(g, cov.cov_bwd(types, params, x1, x2, dK)),
               f"{name}: K7B differs between two launches")
+        key = (id(types), n, m)
+        if sym:
+            K_sym[key] = K
+        elif key in K_sym:
+            check(_bitwise(K, K_sym[key]),
+                  f"{name}: K7F differs from the symmetric path's")
         err["K7F"] = max(err["K7F"], ef)
         err["K7B"] = max(err["K7B"], eb)
-        log(f"parity ok: {name}: K7F {ef:.3g}, K7B {eb:.3g} (ill lanes {ill})")
-    log("parity ok: K7F/K7B bitwise equal over two launches")
+        log(f"parity ok: {name} ({'symmetric' if sym else 'general'} path, "
+            f"classes {_class_histogram(types)}): K7F {ef:.3g}, K7B {eb:.3g} "
+            f"(ill lanes {ill})")
+    log("parity ok: K7F/K7B bitwise equal over two launches; K7F bitwise "
+        "equal on the symmetric and general paths")
     return err
 
 
+def _events():
+    import torch
+
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
 def _time_ms(fn, warmup=3, runs=20):
+    """(ms per call, spread) by the device's clock: ``runs`` calls captured
+    in one CUDA graph and replayed between two events, over ``runs``; the
+    median and the max - min of three replays, after ``warmup`` eager calls
+    and one replay.  This reads the kernels alone: the wrapper's host work
+    (checks, ``torch.empty``, the ctypes call) is not replayed."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(runs):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(3):
+        a, b = _events()
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / runs)
+    return float(np.median(times)), float(np.ptp(times))
+
+
+def _host_ms(fn, warmup=3, runs=20):
+    """(ms per call, spread) with one event pair around each Python call:
+    the median and interquartile range of ``runs`` calls.  What a
+    host-bound caller pays for one call, wrapper included; below about
+    0.1 ms it reads the host, not the kernel."""
     import torch
 
     for _ in range(warmup):
@@ -652,14 +734,43 @@ def _time_ms(fn, warmup=3, runs=20):
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+        a, b = _events()
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    q1, q2, q3 = np.percentile(times, [25, 50, 75])
+    return float(q2), float(q3 - q1)
+
+
+def _burst_ms(fn, warmup=3, runs=20):
+    """ms per call over ``runs`` eager calls back to back between two
+    events: the plain versions and library calls (many launches each, not
+    captured in a graph here), whose calls take far longer than their
+    launches' host work."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a, b = _events()
+    a.record()
+    for _ in range(runs):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / runs
+
+
+def _kernel_ms(ms, name, fn, warmup=3, runs=20):
+    """Time a kernel wrapper both ways: ms[name] by the device's clock,
+    ms[name + "_host"] one call at a time, and ms[name + "_spread"] the
+    two spreads [device, host]."""
+    (dev, dev_spread), (host, host_spread) = (
+        _time_ms(fn, warmup, runs), _host_ms(fn, warmup, runs))
+    ms[name], ms[name + "_host"] = dev, host
+    ms[name + "_spread"] = [dev_spread, host_spread]
 
 
 # FP32 operations per element and heap node, counted from the node bodies
@@ -678,18 +789,22 @@ def _bound(nbytes, ops):
                                        else "operations")
 
 
-def _bounds(types, n, m=None):
+def _bounds(types, n, m=None, sym=True):
     """Each kernel's bound at P particles of heaps ``types`` and capacity n
-    (K7F/K7B: n x m points, shared by the particles): bytes of its inputs
-    read once and outputs written once, against the operations these trees
-    need (K4/K5: lower-triangle elements; K7F/K7B: all n m elements;
-    Cholesky and triangular inverse n^3 / 3 flops each).  A symmetric or
-    triangular input (K3/K6a's SPD matrix, K6b's factor) is read as its
-    lower triangle only; the dense (n, n) output is written in full."""
+    (K7F/K7B: n x m points, shared by the particles; ``sym``: K(x, x)):
+    bytes of its inputs read once and outputs written once, against the
+    operations these trees need (K4/K5 and a symmetric K7F/K7B:
+    lower-triangle elements; a general K7F/K7B: all n m elements; Cholesky
+    and triangular inverse n^3 / 3 flops each).  A symmetric or triangular
+    input (K3/K6a's SPD matrix, K6b's factor) is read as its lower triangle
+    only; the dense (n, n) output is written in full."""
     t = types.cpu().numpy()
     P, N = t.shape
     m = n if m is None else m
+    sym = sym and m == n
     E = n * (n + 1) / 2
+    pairs = E if sym else n * m                 # K7F/K7B element walks
+    pts = 4 * (n if sym else n + m)
     fwd = float((_ELEM_OPS + _FWD_OPS[t].sum(1)).sum())   # over particles
     bwd = float(_BWD_OPS[t].sum())
     heap = 4 * (P * N + 3 * P * N)
@@ -706,36 +821,39 @@ def _bounds(types, n, m=None):
                      E * (fwd + bwd + P)),
         "K6a": _bound(tri + 8 * P * n, chol),
         "K6b": _bound(tri, P * n ** 3 / 3),
-        "K7F": _bound(heap + 4 * (n + m) + 4 * P * n * m, n * m * fwd),
-        "K7B": _bound(heap + 4 * (n + m) + 4 * P * n * m + 12 * P * N,
-                      n * m * (fwd + bwd + P)),
+        "K7F": _bound(heap + pts + 4 * P * n * m, pairs * fwd),
+        "K7B": _bound(heap + pts + 4 * P * n * m + 12 * P * N,
+                      pairs * (fwd + bwd + P)),
     }
 
 
 def kernel_timing():
     """ms per launch at the main paths' shapes: K1/K2 at P = 200, n = 160
-    (the weekly fit's largest capacity), K3/K4/K5 at P = 200, n = 576 (the
-    daily fit's composed step), K6a/K6b/K7F/K7B at P = 200, n = 160 (the
-    "pallas" path's weekly fit) and K7F at (160, 8) (its forecast's
-    K(x, xs)); the plain versions of K4/K5 run in chunks of 25 particles
-    (K7B's in chunks of 50: their level planes would not fit at P = 200)
-    and are timed over 5 runs after 1 warm-up, as are K1/K2 at n = 512 and
-    the composed LML core (value + gradient, value only) at n = 160, 512
-    and 576.  Returns (ms, bounds)."""
+    (the weekly fit's largest capacity) and 512 (the daily fit's), K3/K4/K5
+    at P = 200, n = 576 (the daily fit's composed step), K6a/K6b/K7F/K7B at
+    P = 200, n = 160 (the "pallas" path's weekly fit; K(x, x), the
+    symmetric path), K7F also at the forecast's K(x, xs) (160, 8) and
+    K(xs, xs) (8, 8) and at (512, 512), K7B also at (512, 512).  Every
+    kernel by the device's clock (``_time_ms``) and one call at a time
+    (``_host_ms``); the plain versions, library calls and the composed LML
+    core (value + gradient, value only, at n = 160, 512 and 576), their
+    yardstick, over back-to-back calls (``_burst_ms``), 5 after 1 warm-up
+    where a call takes milliseconds.  The plain versions of K4/K5 run in
+    chunks of 25 particles, K7B's in chunks of 50: their level planes would
+    not fit at P = 200.  Returns (ms, bounds)."""
     import torch
 
     from nowcastautogp_tpu_torch.ops import (
         chol, chol_mxu, cov, lml, megacov, megalml,
     )
 
+    ms = {}
     args = _population(200, 160, seed=7)
-    ms = {
-        "K1": _time_ms(lambda: megalml.megalml_vag(*args)),
-        "K2": _time_ms(lambda: megalml.megalml_val(*args)),
-        "K1_plain": _time_ms(
-            lambda: _plain_value_and_grads(args, torch.float32)),
-        "K2_plain": _time_ms(lambda: megalml.lml_core_plain(*args)),
-    }
+    _kernel_ms(ms, "K1", lambda: megalml.megalml_vag(*args))
+    _kernel_ms(ms, "K2", lambda: megalml.megalml_val(*args))
+    ms["K1_plain"] = _burst_ms(
+        lambda: _plain_value_and_grads(args, torch.float32))
+    ms["K2_plain"] = _burst_ms(lambda: megalml.lml_core_plain(*args))
     bounds = {k: v for k, v in _bounds(args[0], 160).items()
               if k in ("K1", "K2")}
     types, params, diagv, mask, x, ym = _population(200, 576, seed=9)
@@ -750,15 +868,15 @@ def kernel_timing():
         L = torch.linalg.cholesky_ex(A)[0]
         return torch.linalg.solve_triangular(L, eye, upper=False)
 
+    _kernel_ms(ms, "K4", lambda: megacov.megacov_fwd(types, params, x))
+    _kernel_ms(ms, "K5", lambda: megacov.megacov_bwd(types, params, x, dK))
+    _kernel_ms(ms, "K3", lambda: chol_mxu.tri_inv(A))
     ms.update({
-        "K4": _time_ms(lambda: megacov.megacov_fwd(types, params, x)),
-        "K5": _time_ms(lambda: megacov.megacov_bwd(types, params, x, dK)),
-        "K3": _time_ms(lambda: chol_mxu.tri_inv(A)),
-        "K3_plain": _time_ms(lambda: chol_mxu.tri_inv_plain(A)),
-        "K3_library": _time_ms(library_inverse),
-        "K4_plain": _time_ms(lambda: _chunked(
+        "K3_plain": _burst_ms(lambda: chol_mxu.tri_inv_plain(A)),
+        "K3_library": _burst_ms(library_inverse),
+        "K4_plain": _burst_ms(lambda: _chunked(
             megacov.megacov_fwd_plain, 25, types, params, x), 1, 5),
-        "K5_plain": _time_ms(lambda: _chunked(
+        "K5_plain": _burst_ms(lambda: _chunked(
             megacov.megacov_bwd_plain, 25, types, params, x, dK), 1, 5),
     })
     bounds.update({k: v for k, v in _bounds(types, 576).items()
@@ -777,13 +895,13 @@ def kernel_timing():
         with torch.no_grad():
             lml.lml_core(types, params, diagv, mask, x, ym)
 
-    ms["composed_vag_n576"] = _time_ms(composed_value_and_grad, 1, 5)
-    ms["composed_val_n576"] = _time_ms(composed_value, 1, 5)
+    ms["composed_vag_n576"] = _burst_ms(composed_value_and_grad, 1, 5)
+    ms["composed_val_n576"] = _burst_ms(composed_value, 1, 5)
     for n, seed in ((160, 7), (512, 4)):
         args = _population(200, n, seed=seed)
         if n == 512:
-            ms["K1_n512"] = _time_ms(lambda: megalml.megalml_vag(*args), 1, 5)
-            ms["K2_n512"] = _time_ms(lambda: megalml.megalml_val(*args), 1, 5)
+            _kernel_ms(ms, "K1_n512", lambda: megalml.megalml_vag(*args), 1, 5)
+            _kernel_ms(ms, "K2_n512", lambda: megalml.megalml_val(*args), 1, 5)
             b512 = _bounds(args[0], 512)
             bounds.update({"K1_n512": b512["K1"], "K2_n512": b512["K2"]})
         pk = args[1].clone().requires_grad_(True)
@@ -796,48 +914,61 @@ def kernel_timing():
             with torch.no_grad():
                 lml.lml_core_composed(*args)
 
-        ms[f"composed_vag_n{n}"] = _time_ms(yard_vag, 1, 5)
-        ms[f"composed_val_n{n}"] = _time_ms(yard_val, 1, 5)
+        ms[f"composed_vag_n{n}"] = _burst_ms(yard_vag, 1, 5)
+        ms[f"composed_val_n{n}"] = _burst_ms(yard_val, 1, 5)
 
     # the "pallas" path's kernels at the weekly fit's largest shape, P = 200
-    # and n = 160, and K7F at the forecast's K(x, xs) (160, 8)
+    # and n = 160 (K7F/K7B: K(x, x) of one buffer), and K7F/K7B at the
+    # forecast's K(x, xs) (160, 8) and K(xs, xs) (8, 8) and at (512, 512)
     types, params, diagv, mask, x, ym = _population(200, 160, seed=11)
     x1 = x[0].contiguous()
     xs = 1.0 + torch.arange(1, 9, device=DEVICE) / 159.0
+    x512 = torch.linspace(0, 1, 512, device=DEVICE)
     K = megacov.megacov_fwd(types, params, x)
     A = (K * (mask[:, :, None] * mask[:, None, :])
          + torch.diag_embed(diagv)).contiguous()
     L = chol.chol_solve_batched(A, ym)[0]
     eye = torch.eye(160, device=DEVICE).expand_as(A)
-    dK = torch.randn(K.shape, generator=torch.Generator(DEVICE).manual_seed(3),
-                     device=DEVICE)
+    gen = torch.Generator(DEVICE).manual_seed(3)
+    dK = torch.randn(K.shape, generator=gen, device=DEVICE)
+    dK512 = torch.randn((200, 512, 512), generator=gen, device=DEVICE)
 
     def library_solve():
         Lc = torch.linalg.cholesky_ex(A)[0]
         return torch.cholesky_solve(ym[..., None], Lc)
 
+    _kernel_ms(ms, "K6a", lambda: chol.chol_solve_batched(A, ym))
+    _kernel_ms(ms, "K6b", lambda: chol.tri_inverse(L))
+    _kernel_ms(ms, "K7F", lambda: cov.cov_fwd(types, params, x1, x1))
+    _kernel_ms(ms, "K7F_n160_m8", lambda: cov.cov_fwd(types, params, x1, xs))
+    _kernel_ms(ms, "K7F_n8_m8", lambda: cov.cov_fwd(types, params, xs, xs))
+    _kernel_ms(ms, "K7F_n512",
+               lambda: cov.cov_fwd(types, params, x512, x512))
+    _kernel_ms(ms, "K7B", lambda: cov.cov_bwd(types, params, x1, x1, dK))
+    _kernel_ms(ms, "K7B_n512",
+               lambda: cov.cov_bwd(types, params, x512, x512, dK512))
     ms.update({
-        "K6a": _time_ms(lambda: chol.chol_solve_batched(A, ym)),
-        "K6a_plain": _time_ms(lambda: chol.chol_solve_plain(A, ym)),
-        "K6a_library": _time_ms(library_solve),
-        "K6b": _time_ms(lambda: chol.tri_inverse(L)),
-        "K6b_plain": _time_ms(lambda: chol.tri_inverse_plain(L)),
-        "K6b_library": _time_ms(
+        "K6a_plain": _burst_ms(lambda: chol.chol_solve_plain(A, ym)),
+        "K6a_library": _burst_ms(library_solve),
+        "K6b_plain": _burst_ms(lambda: chol.tri_inverse_plain(L)),
+        "K6b_library": _burst_ms(
             lambda: torch.linalg.solve_triangular(L, eye, upper=False)),
-        "K7F": _time_ms(lambda: cov.cov_fwd(types, params, x1, x1)),
-        "K7F_plain": _time_ms(lambda: cov.cov_fwd_plain(types, params, x1,
-                                                        x1)),
-        "K7F_n160_m8": _time_ms(lambda: cov.cov_fwd(types, params, x1, xs)),
-        "K7F_n160_m8_plain": _time_ms(
+        "K7F_plain": _burst_ms(lambda: cov.cov_fwd_plain(types, params, x1,
+                                                         x1)),
+        "K7F_n160_m8_plain": _burst_ms(
             lambda: cov.cov_fwd_plain(types, params, x1, xs)),
-        "K7B": _time_ms(lambda: cov.cov_bwd(types, params, x1, x1, dK)),
-        "K7B_plain": _time_ms(lambda: _chunked(
+        "K7B_plain": _burst_ms(lambda: _chunked(
             lambda t, p, d: cov.cov_bwd_plain(t, p, x1, x1, d), 50, types,
             params, dK), 1, 5),
     })
     b160 = _bounds(types, 160)
     bounds.update({k: b160[k] for k in ("K6a", "K6b", "K7F", "K7B")})
     bounds["K7F_n160_m8"] = _bounds(types, 160, 8)["K7F"]
+    bounds["K7F_n8_m8"] = _bounds(types, 8)["K7F"]
+    b512 = _bounds(types, 512)
+    bounds["K7F_n512"], bounds["K7B_n512"] = b512["K7F"], b512["K7B"]
+    log(f"heap classes of the K6/K7 timing population: "
+        f"{_class_histogram(types)}")
     return ms, bounds
 
 
@@ -1010,6 +1141,8 @@ def pallas_weekly(seed=2, n_particles=200, n_train=150, horizon=8,
     """Phase 3's weekly fit under both "pallas" backends (K7F/K7B
     covariances, the K6a/K6b core), then ``forecast`` of the 8 weeks after
     the training window with one HMC refresh before each of 100 draws."""
+    import torch
+
     import nowcastautogp_tpu_torch as ngp
     from nowcastautogp_tpu_torch.ops import cov, lml
 
@@ -1028,6 +1161,8 @@ def pallas_weekly(seed=2, n_particles=200, n_train=150, horizon=8,
         fit_s = time.time() - t0
         fit_launches = _counters()
         fit_sha256 = _fingerprint(model)
+        classes = _class_histogram(torch.as_tensor(model._host_types))
+        log(f"pallas: heap classes of the fitted ensemble: {classes}")
         _reset_counters()
         t0 = time.time()
         fc = ngp.forecast(model, f_dates, draws, inv_transformation=inv,
@@ -1057,7 +1192,8 @@ def pallas_weekly(seed=2, n_particles=200, n_train=150, horizon=8,
     launches = {k: fit_launches[k] + fc_launches[k] for k in fit_launches}
     return {"fit_s": fit_s, "forecast_s": forecast_s, "log_crps": crps,
             "coverage90": cover90, "fit_sha256": fit_sha256,
-            "fit_launches": fit_launches, "launches": launches}
+            "fit_classes": classes, "fit_launches": fit_launches,
+            "launches": launches}
 
 
 def main():
@@ -1116,10 +1252,17 @@ def main():
     # K1/K2 also at the daily fit's n = 512, each beside the composed core
     # (value + gradient for K1, value for K2) at its own n as the yardstick
     extra = {k: {"yardstick_ms": ms[f"composed_{kind}_n160"],
-                 "ms_n512": ms[f"{k}_n512"],
-                 "bound_ms_n512": bounds[f"{k}_n512"][0],
                  "yardstick_ms_n512": ms[f"composed_{kind}_n512"]}
              for k, kind in (("K1", "vag"), ("K2", "val"))}
+    # each kernel's other shapes: ms (device clock), host_ms, bound_ms
+    shapes = {"K1": ("n512",), "K2": ("n512",),
+              "K7F": ("n160_m8", "n8_m8", "n512"), "K7B": ("n512",)}
+    for k, tags in shapes.items():
+        for tag in tags:
+            extra.setdefault(k, {}).update({
+                f"ms_{tag}": ms[f"{k}_{tag}"],
+                f"host_ms_{tag}": ms[f"{k}_{tag}_host"],
+                f"bound_ms_{tag}": bounds[f"{k}_{tag}"][0]})
     kernels = []
     for k, name, src, tpu_src, plain, lib in table:
         bound_ms, bound_by = bounds[k]
@@ -1129,7 +1272,8 @@ def main():
             "name": f"{k} {name}", "route": "cuda", "source": csrc + src,
             "replaces": tpu + tpu_src, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": err[k],
-            "ms": ms[k], "plain_ms": ms[plain], "bound_ms": bound_ms,
+            "ms": ms[k], "host_ms": ms[f"{k}_host"], "plain_ms": ms[plain],
+            "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": ms[lib] if lib else None, **extra.get(k, {})})
     print(json.dumps({"phase_s": phases, "kernel_ms": ms,

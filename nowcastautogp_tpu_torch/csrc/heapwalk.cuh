@@ -11,7 +11,9 @@
 //
 // Every kernel that includes this header runs the same node bodies, so the
 // covariance the LML kernels assemble and the one K4 returns are the same
-// float function of (params, x).
+// float function of (params, x).  K7F/K7B walk only the first heap_class
+// slots of each tree and skip its empty slots (SKIP_EMPTY); the others walk
+// all N slots.
 
 #pragma once
 
@@ -65,13 +67,19 @@ __device__ __forceinline__ Node make_node(int t, float p0, float p1,
 }
 
 // Bottom-up tree walk for one element: v[k] = value of heap slot k.
-template <int N>
+// SKIP_EMPTY tests for an empty slot first (its value is 0 either way), so
+// a sparse heap pays one compare per empty slot instead of the whole chain.
+template <int N, bool SKIP_EMPTY = false>
 __device__ __forceinline__ void walk_fwd(const Node* nd, float xi, float xj,
                                          float r, float r2, float log_r,
                                          float (&v)[N]) {
 #pragma unroll
   for (int k = N - 1; k >= 0; --k) {
     const int t = nd[k].type;
+    if (SKIP_EMPTY && t == EMPTY) {
+      v[k] = 0.0f;
+      continue;
+    }
     float val = 0.0f;
     if (t == CONST) {
       val = nd[k].c0;
@@ -102,28 +110,30 @@ __device__ __forceinline__ void walk_fwd(const Node* nd, float xi, float xj,
   }
 }
 
-// The root value K(xi, xj) of one element.
-template <int N>
+// The root value K(xi, xj) of one element; bit for bit K(xj, xi).
+template <int N, bool SKIP_EMPTY = false>
 __device__ __forceinline__ float cov_elem(const Node* nd, float xi,
                                           float xj) {
   const float d = xi - xj;
   const float r = fabsf(d);
   float v[N];
-  walk_fwd<N>(nd, xi, xj, r, d * d, logf(fmaxf(r, 1e-30f)), v);
+  walk_fwd<N, SKIP_EMPTY>(nd, xi, xj, r, d * d, logf(fmaxf(r, 1e-30f)), v);
   return v[0];
 }
 
 // Top-down cotangent sweep for one element with seed w = dcore/dK_ij
-// (already folded and masked); accumulates dK_ij/dparams * w into acc.
-template <int N>
+// (already folded and masked); accumulates dK_ij/dparams * w into acc,
+// anything indexed acc[k][q] (slot k, parameter q): a float [N][3] in
+// registers, or an accessor onto shared memory.
+template <int N, bool SKIP_EMPTY = false, class Acc>
 __device__ __forceinline__ void walk_bwd(const Node* nd, float xi, float xj,
-                                         float w, float (&acc)[N][3]) {
+                                         float w, Acc& acc) {
   const float d = xi - xj;
   const float r = fabsf(d);
   const float r2 = d * d;
   const float log_r = logf(fmaxf(r, 1e-30f));
   float v[N];
-  walk_fwd<N>(nd, xi, xj, r, r2, log_r, v);
+  walk_fwd<N, SKIP_EMPTY>(nd, xi, xj, r, r2, log_r, v);
   float dv[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) dv[k] = 0.0f;
@@ -131,6 +141,7 @@ __device__ __forceinline__ void walk_bwd(const Node* nd, float xi, float xj,
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const int t = nd[k].type;
+    if (SKIP_EMPTY && t == EMPTY) continue;  // no parameters, no children
     const float g = dv[k];
     const float gk = g * v[k];
     if (t == CONST) {
@@ -188,6 +199,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// The heap class of a block's tree: the smallest complete heap, 2^d - 1
+// slots, that holds every live slot of nd[0 .. N).  Heap slots are level
+// ordered, so the first class slots hold the whole tree and every later
+// slot is empty.  Every warp computes it from shared memory (N <= 64);
+// call it with the whole warp active.
+__device__ __forceinline__ int heap_class(const Node* nd, int N) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lo =
+      __ballot_sync(0xffffffffu, lane < N && nd[lane].type != EMPTY);
+  const unsigned hi =
+      __ballot_sync(0xffffffffu, lane + 32 < N && nd[lane + 32].type != EMPTY);
+  const int top = hi ? 63 - __clz(hi) : (lo ? 31 - __clz(lo) : 0);
+  return (2 << (31 - __clz(top + 1))) - 1;
 }
 
 // Load heap nodes of particle p into shared memory (block-strided).

@@ -14,10 +14,13 @@
   ``ops/kernels.py``).
 
 x1 is (P, n) or a shared (n,), x2 (P, m) or a shared (m,); a row-expanded
-view counts as shared.  The envelope is 1 <= n, m <= ``MAX_FUSED_N`` = 512,
-the JAX package's; ``cov_fn`` sends larger shapes to the interpreter by
-shape, as the JAX package does.  On a CUDA tensor the
-wrappers launch their kernel or raise.  The kernels replace
+view counts as shared.  When x2 is x1 (``_symmetric``: the same tensor, or
+views of one buffer with the same shape and strides; values are never
+compared) the kernels walk only the lower triangle of K(x, x); each tree
+only as far as its heap class (``heap_class``).  The envelope is
+1 <= n, m <= ``MAX_FUSED_N`` = 512, the JAX package's; ``cov_fn`` sends
+larger shapes to the interpreter by shape, as the JAX package does.  On a
+CUDA tensor the wrappers launch their kernel or raise.  The kernels replace
 ``pallas_cov.py::_cov_fwd_kernel`` (K7F) and ``::_cov_bwd_kernel`` (K7B);
 ``csrc/cov.cu`` says what bounds them and how.
 """
@@ -33,8 +36,9 @@ from .megalml import _HEAP_SIZES, _pad_heap
 
 __all__ = [
     "cov_fwd", "cov_bwd", "cov_fwd_plain", "cov_bwd_plain", "eval_cov_fused",
-    "CovFusedFn", "fused_supported", "MAX_FUSED_N", "K7F_LAUNCHES",
-    "K7B_LAUNCHES", "reset_launch_counts", "cov_fn", "set_cov_backend",
+    "CovFusedFn", "fused_supported", "heap_class", "MAX_FUSED_N",
+    "K7F_LAUNCHES", "K7B_LAUNCHES", "reset_launch_counts", "cov_fn",
+    "set_cov_backend",
 ]
 
 # Launches of K7F and K7B, counted where each wrapper launches its kernel.
@@ -59,6 +63,20 @@ def fused_supported(n: int, m: int) -> bool:
     return 1 <= n <= MAX_FUSED_N and 1 <= m <= MAX_FUSED_N
 
 
+def heap_class(types):
+    """Each tree's heap class, the kernels' rule: the smallest complete heap
+    (1, 3, 7, ... slots) that holds every live slot of its row of ``types``
+    (P, N); an empty tree is class 1.  Heap slots are level ordered, so the
+    first class slots hold the whole tree.  Returns int64 (P,)."""
+    N = types.shape[-1]
+    slot = torch.arange(N, device=types.device)
+    top = torch.where(types != 0, slot, -1).amax(-1)
+    cls = torch.ones_like(top)
+    while bool((top >= cls).any()):
+        cls = torch.where(top >= cls, 2 * cls + 1, cls)
+    return cls
+
+
 def cov_fwd_plain(types, params, x1, x2):
     """Plain version of K7F: the torch interpreter."""
     return eval_cov_batch(types, params, x1, x2)
@@ -71,6 +89,16 @@ def cov_bwd_plain(types, params, x1, x2, dK):
         K = eval_cov_batch(types, p, x1, x2)
         (g,) = torch.autograd.grad((K * dK).sum(), p)
     return g
+
+
+def _symmetric(x1, x2) -> bool:
+    """True when x2 is x1: the same tensor, or views of one buffer at the
+    same offset with the same shape and strides.  Decided from the operands
+    before any copy; equal values in distinct buffers do not count."""
+    return x2 is x1 or (x1.device == x2.device
+                        and x1.data_ptr() == x2.data_ptr()
+                        and x1.shape == x2.shape
+                        and x1.stride() == x2.stride())
 
 
 def _points(x):
@@ -120,12 +148,13 @@ def cov_fwd(types, params, x1, x2):
     global K7F_LAUNCHES
     if _device(types) == "cpu":
         return cov_fwd_plain(types, params, x1, x2)
+    sym = _symmetric(x1, x2)
     (x1, s1), (x2, s2) = _points(x1), _points(x2)
     P, N, n, m = _check(types, params, x1, x2)
     K = torch.empty((P, n, m), dtype=torch.float32, device=types.device)
     rc = library().cov_fwd(
-        N, P, n, m, s1, s2, types.data_ptr(), params.data_ptr(),
-        x1.data_ptr(), x2.data_ptr(), K.data_ptr(),
+        N, P, n, m, s1, s2, int(sym), types.data_ptr(), params.data_ptr(),
+        x1.data_ptr(), (x1 if sym else x2).data_ptr(), K.data_ptr(),
         torch.cuda.current_stream(types.device).cuda_stream)
     raise_on(rc, "K7F cov_fwd")
     K7F_LAUNCHES += 1
@@ -137,17 +166,19 @@ def cov_bwd(types, params, x1, x2, dK):
     global K7B_LAUNCHES
     if _device(types) == "cpu":
         return cov_bwd_plain(types, params, x1, x2, dK)
+    sym = _symmetric(x1, x2)
     (x1, s1), (x2, s2) = _points(x1), _points(x2)
     P, N, n, m = _check(types, params, x1, x2, dK)
     lib = library()
     dev = types.device
     dparams = torch.empty((P, N, 3), dtype=torch.float32, device=dev)
-    partial = torch.empty((P, lib.cov_chunks(n, m), 3 * N),
+    partial = torch.empty((P, lib.cov_tiles(n, m, int(sym)), 3 * N),
                           dtype=torch.float32, device=dev)
     rc = lib.cov_bwd(
-        N, P, n, m, s1, s2, types.data_ptr(), params.data_ptr(),
-        x1.data_ptr(), x2.data_ptr(), dK.data_ptr(), dparams.data_ptr(),
-        partial.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        N, P, n, m, s1, s2, int(sym), types.data_ptr(), params.data_ptr(),
+        x1.data_ptr(), (x1 if sym else x2).data_ptr(), dK.data_ptr(),
+        dparams.data_ptr(), partial.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     raise_on(rc, "K7B cov_bwd")
     K7B_LAUNCHES += 1
     return dparams

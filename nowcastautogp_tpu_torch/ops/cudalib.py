@@ -37,9 +37,9 @@ _SIGNATURES = {
     "tri_inv": [_I32, _I32] + [_PTR] * 5,
     "chol_solve": [_I32, _I32] + [_PTR] * 6,
     "chol_tri_inverse": [_I32, _I32] + [_PTR] * 4,
-    "cov_fwd": [_I32] * 6 + [_PTR] * 6,
-    "cov_bwd": [_I32] * 6 + [_PTR] * 8,
-    "cov_chunks": [_I32, _I32],
+    "cov_fwd": [_I32] * 7 + [_PTR] * 6,
+    "cov_bwd": [_I32] * 7 + [_PTR] * 8,
+    "cov_tiles": [_I32] * 3,
 }
 
 

@@ -85,7 +85,7 @@ def profile_fit(path, seed=2, n_particles=200):
     out["device_s"] = sum(e.device_time_total for e in rows) / 1e6
     out["kernels"] = [
         {"name": e.key[:80], "calls": e.count,
-         "device_s": e.device_time_total / 1e6} for e in rows[:12]]
+         "device_s": e.device_time_total / 1e6} for e in rows[:16]]
 
     timers = {}
     patches = [(structure_mcmc, "propose_batch", "propose_batch"),

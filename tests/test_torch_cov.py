@@ -1,14 +1,19 @@
 """Port parity: one tree's K(x1, x2) and its VJP (K7F/K7B) and ``cov_fn``.
 
 On the CPU the K7 wrappers run their plain versions (the torch interpreter
-and its autograd VJP), so these tests hold those, at the rectangular shapes
-the "pallas" covariance backend gives them (n != m, x1 != x2, a forecast
-horizon m = 8, shared and per-particle points), against the JAX package's
-plain reference ``eval_cov_impl`` and its ``jax.vjp``, computed once per
-module and jitted.  No JAX Pallas kernel runs.  ``cov_fn``'s dispatch is
-checked with counters monkeypatched onto the wrappers.  Inputs are made
-with numpy from a seed: P = 4 depth-3 heaps (two prior particles and two
-hand-built heaps that together hold all eight node types).
+and its autograd VJP), so these tests hold those, at the shapes the
+"pallas" covariance backend gives them (n != m, x1 != x2, a forecast
+horizon m = 8, shared and per-particle points, and K(x, x) with x2 x1
+itself), against the JAX package's plain reference ``eval_cov_impl`` and
+its ``jax.vjp``, computed once per module and jitted.  No JAX Pallas kernel
+runs.  The rules the CUDA kernels rest on are held here too: the heap
+class (walking only a tree's class leaves K bitwise the same, and the
+dropped slots have zero gradients), the folded cotangent of the symmetric
+path (its VJP is JAX's VJP of the full asymmetric cotangent), and which
+operands take the symmetric path.  ``cov_fn``'s dispatch is checked with
+counters monkeypatched onto the wrappers.  Inputs are made with numpy from
+a seed: P = 4 depth-3 heaps (two prior particles and two hand-built heaps
+that together hold all eight node types).
 """
 
 import jax
@@ -29,12 +34,14 @@ P = 4
 COV_RTOL, COV_ATOL = 1e-5, 1e-5
 COT_TOL = 2e-4
 
-# (name, n, m, x1 per-particle?, x2 per-particle?)
+# (name, n, m, x1 per-particle?, x2 per-particle? or "x1": x2 is x1)
 SHAPES = [
     ("forecast Ks: per-particle x, shared xs", 40, 8, True, False),
     ("shared x1, per-particle x2", 24, 56, False, True),
     ("forecast Kss: shared xs", 8, 8, False, False),
+    ("fit K(x, x): per-particle x, x2 is x1", 24, 24, True, "x1"),
 ]
+SYMMETRIC = SHAPES[-1][0]
 
 
 @pytest.fixture(autouse=True)
@@ -78,8 +85,9 @@ def cases():
     for i, (name, n, m, per1, per2) in enumerate(SHAPES):
         types, params, rng = _heaps(seed=10 + i)
         x1 = np.sort(rng.uniform(0.0, 1.0, (P, n) if per1 else n), -1)
-        x2 = np.sort(rng.uniform(0.5, 1.3, (P, m) if per2 else m), -1)
-        x1, x2 = x1.astype(np.float32), x2.astype(np.float32)
+        x1 = x1.astype(np.float32)
+        x2 = x1 if per2 == "x1" else np.sort(
+            rng.uniform(0.5, 1.3, (P, m) if per2 else m), -1).astype(np.float32)
         cot = rng.standard_normal((P, n, m)).astype(np.float32)
         x1p = np.ones((P, N1), np.float32)
         x2p = np.ones((P, N2), np.float32)
@@ -106,6 +114,105 @@ def test_plain_k7_matches_jax(cases, name):
     leaf = p.clone().requires_grad_(True)
     (cov.eval_cov_fused(t, leaf, x1, x2) * dK).sum().backward()
     torch.testing.assert_close(leaf.grad, g, rtol=0, atol=0)
+
+
+def _chain_heap(top, N=63):
+    """A valid tree whose highest live slot is ``top`` (the last slot of its
+    level): operators down the right spine, a leaf beside each, cycling
+    through every node type."""
+    types = np.zeros(N, np.int32)
+    ops, leaves = (st.PLUS, st.TIMES, st.CP), (st.SE, st.CONST, st.LINEAR,
+                                                st.GE, st.PERIODIC)
+    k, depth = 0, 0
+    while k < top:
+        types[k] = ops[depth % 3]
+        types[2 * k + 1] = leaves[depth % 5]
+        k, depth = 2 * k + 2, depth + 1
+    types[k] = leaves[(depth + 2) % 5]
+    return types
+
+
+def test_heap_class_is_the_smallest_complete_heap():
+    classes = (1, 3, 7, 15, 31, 63)
+    types = np.stack([_chain_heap(c - 1) for c in classes]
+                     + [np.zeros(63, np.int32)])        # an empty tree: 1
+    got = cov.heap_class(torch.tensor(types)).tolist()
+    assert got == list(classes) + [1]
+    # the definition, slot by slot: every live slot lies below the class,
+    # and the class is the smallest complete heap size with that property
+    for row, c in zip(types, got):
+        live = np.flatnonzero(row)
+        assert (live < c).all() and (c == 1 or live.max() >= (c - 1) // 2)
+
+
+@pytest.mark.parametrize("name", [s[0] for s in SHAPES])
+def test_heap_class_truncation_is_exact(cases, name):
+    """Walking only a tree's class gives the interpreter's K bit for bit,
+    and JAX's VJP is zero in every slot past the class."""
+    c = cases[name]
+    t, p = torch.tensor(c["types"]), torch.tensor(c["params"])
+    x1, x2 = (torch.tensor(c[k]).expand(P, c[k].shape[-1]) for k in ("x1", "x2"))
+    for i, nc in enumerate(cov.heap_class(t).tolist()):
+        one = slice(i, i + 1)   # one particle a call: same vector lanes
+        K = kernels.eval_cov_batch(t[one], p[one], x1[one], x2[one])
+        Kc = kernels.eval_cov_batch(t[one, :nc], p[one, :nc], x1[one],
+                                    x2[one])
+        assert torch.equal(Kc, K)
+        assert not c["g"][i, nc:].any()
+
+
+def test_truncation_at_depth_five():
+    """The same at the fit's depth (31 slots), torch alone: K bitwise, and
+    autograd's gradient zero past the class."""
+    rng = np.random.default_rng(5)
+    cfg = JGPConfig(max_depth=5)
+    types = np.stack([sample_particle(rng, cfg)[0] for _ in range(6)]
+                     + [_chain_heap(c - 1, 31) for c in (1, 3, 7, 15, 31)])
+    t = torch.tensor(types)
+    p = torch.tensor(rng.normal(0.0, 0.5, types.shape + (3,)),
+                     dtype=torch.float32).requires_grad_(True)
+    x = torch.linspace(0, 1, 12)
+    K = kernels.eval_cov_batch(t, p, x, x)
+    (g,) = torch.autograd.grad((K * torch.randn(K.shape)).sum(), p)
+    cls = cov.heap_class(t).tolist()
+    assert set(cls) == {1, 3, 7, 15, 31}
+    with torch.no_grad():
+        for i, nc in enumerate(cls):
+            one = slice(i, i + 1)
+            assert torch.equal(kernels.eval_cov_batch(t[one, :nc],
+                                                      p[one, :nc], x, x),
+                               kernels.eval_cov_batch(t[one], p[one], x, x))
+            assert not g[i, nc:].any()
+
+
+def test_folded_cotangent_gives_the_full_vjp(cases):
+    """The symmetric path's fold: the VJP of K(x, x) with the lower
+    triangular W (dK_ij + dK_ji below the diagonal, dK_ii on it) is JAX's
+    VJP with the full asymmetric dK."""
+    c = cases[SYMMETRIC]
+    dK = torch.tensor(c["cot"])
+    W = torch.tril(dK + dK.transpose(1, 2), -1) + torch.diag_embed(
+        dK.diagonal(dim1=1, dim2=2))
+    t, p, x = (torch.tensor(c[k]) for k in ("types", "params", "x1"))
+    g = cov.cov_bwd(t, p, x, x, W)
+    np.testing.assert_allclose(g.numpy(), c["g"], rtol=COT_TOL, atol=COT_TOL)
+    # the fold matters: the lower triangle of dK alone is not the VJP
+    unfolded = cov.cov_bwd(t, p, x, x, torch.tril(dK)).numpy()
+    assert not np.allclose(unfolded, c["g"], rtol=COT_TOL, atol=COT_TOL)
+
+
+def test_symmetric_path_rule():
+    """The same tensor, or views of one buffer with the same shape and
+    strides, take the symmetric path; equal values elsewhere do not."""
+    buf = torch.linspace(0, 1, 16)
+    assert cov._symmetric(buf, buf)
+    assert cov._symmetric(buf.expand(P, 16), buf.expand(P, 16))
+    per = torch.rand(P, 16)
+    assert cov._symmetric(per, per[:])
+    assert not cov._symmetric(buf, buf.clone())
+    assert not cov._symmetric(buf, buf.expand(P, 16))       # other shape
+    assert not cov._symmetric(per[:, :8], per[:, 8:])        # other offset
+    assert not cov._symmetric(per, per.t().contiguous().t())  # other strides
 
 
 def _counting(monkeypatch):

@@ -287,6 +287,69 @@ def test_rectangular_covariance_kernels_match_plain(dev, n, m, per1, per2):
     assert torch.equal(got, cov.cov_bwd(types, params, x1, x2, dK))
 
 
+def _chain_heap(top, N):
+    """A valid tree whose highest live slot is ``top`` (the last slot of its
+    level): operators down the right spine, a leaf beside each."""
+    types = np.zeros(N, np.int32)
+    ops, leaves = (st.PLUS, st.TIMES, st.CP), (st.SE, st.CONST, st.LINEAR,
+                                                st.GE, st.PERIODIC)
+    k, depth = 0, 0
+    while k < top:
+        types[k] = ops[depth % 3]
+        types[2 * k + 1] = leaves[depth % 5]
+        k, depth = 2 * k + 2, depth + 1
+    types[k] = leaves[(depth + 2) % 5]
+    return types
+
+
+@pytest.mark.parametrize("n", [8, 96, 160])
+def test_symmetric_and_general_paths(dev, n):
+    """K(x, x) of one buffer (symmetric path) against x2 a copy of x1
+    (general path): K7F bitwise the same, K7B on both paths against plain
+    with an asymmetric cotangent, both bitwise over two launches."""
+    types, params = _batch(dev)[:2]
+    P = types.shape[0]
+    x = torch.linspace(0, 1, n, device=dev)
+    K = cov.cov_fwd(types, params, x, x)
+    assert torch.equal(K, cov.cov_fwd(types, params, x, x.clone()))
+    torch.testing.assert_close(K, cov.cov_fwd_plain(types, params, x, x),
+                               rtol=1e-5, atol=1e-5)
+    dK = torch.randn((P, n, n), generator=torch.Generator(dev).manual_seed(n),
+                     device=dev)
+    ref = cov.cov_bwd_plain(types, params, x, x, dK)
+    for x2 in (x, x.clone()):
+        got = cov.cov_bwd(types, params, x, x2, dK)
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+        assert torch.equal(got, cov.cov_bwd(types, params, x, x2, dK))
+    assert torch.equal(K, cov.cov_fwd(types, params, x, x))
+
+
+@pytest.mark.parametrize("N", [7, 15, 31, 63])
+def test_every_heap_class(dev, N):
+    """Trees of every class up to the heap size N, symmetric and general."""
+    classes = [c for c in (1, 3, 7, 15, 31, 63) if c <= N]
+    types = torch.tensor(np.stack([_chain_heap(c - 1, N) for c in classes]),
+                         device=dev)
+    assert cov.heap_class(types).tolist() == classes
+    rng = np.random.default_rng(N)
+    params = torch.tensor(rng.normal(0.0, 0.5, (len(classes), N, 3)),
+                          dtype=torch.float32, device=dev)
+    x = torch.linspace(0, 1, 40, device=dev)
+    xs = torch.linspace(1.0, 1.1, 8, device=dev)
+    for x2 in (x, xs):
+        K = cov.cov_fwd(types, params, x, x2)
+        torch.testing.assert_close(K, cov.cov_fwd_plain(types, params, x, x2),
+                                   rtol=1e-5, atol=1e-5)
+        dK = torch.randn(K.shape, generator=torch.Generator(dev).manual_seed(1),
+                         device=dev)
+        got = cov.cov_bwd(types, params, x, x2, dK)
+        torch.testing.assert_close(
+            got, cov.cov_bwd_plain(types, params, x, x2, dK), rtol=2e-4,
+            atol=2e-4)
+        for i, c in enumerate(classes):
+            assert not got[i, c:].any()
+
+
 @pytest.mark.parametrize("n", [96, 576])
 def test_cholesky_kernels_match_plain(dev, n):
     _, A, ym = _spd(dev, n, n - 11)
