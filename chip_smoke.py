@@ -20,14 +20,16 @@ Phases (any failure exits nonzero before the final line):
    core's value and gradients) on the same kinds of batches at P = 200 and
    n in {96, 160, 576} (160: the nowcast's K(x, x); 576: the daily
    composed step and forecast) and at P = 4, n = 1024, K4/K5 also at
-   n = 2048; each of K3/K4/K5 bitwise equal over two launches; a non-SPD
-   particle NaN in its own K1/K2/K3 lane only; then ms per launch of every
-   kernel by the device's clock (20 launches captured in a CUDA graph,
-   replayed between events) and one call at a time (``host_ms``), and of
-   its plain version over back-to-back calls, at the main paths' shapes
+   n = 2048; each of K3/K4/K5 bitwise equal over two launches; K4 bitwise
+   equal to K7F's symmetric path (the same tile code) at n = 160 and 512;
+   a non-SPD particle NaN in its own K1/K2/K3 lane only; then ms per launch
+   of every kernel by the device's clock (20 launches captured in a CUDA
+   graph, replayed between events) and one call at a time (``host_ms``),
+   and of its plain version over back-to-back calls, at the main paths' shapes
    (K1/K2 at P = 200, n = 160 and 512, each beside its bound and the
    composed core at the same n, its yardstick; K3/K4/K5 at P = 200,
-   n = 576) and K3's library call;
+   n = 576, K4/K5 also at n = 160 and 2048 and on the daily fit's own
+   heap classes at 576) and K3's library call;
 3. weekly: the ``bench.py`` workload through the port -- a 200-particle
    depth-5 SMC fit on a 150-week series (14 structure moves x 5 HMC x 5
    leapfrog per step) and a 100-scenario x 20-draw nowcast forecast --
@@ -53,9 +55,10 @@ K7F/K7B at P = 200 on the symmetric path (x2 is x1: (32, 32), (96, 96),
 copy of x1, whose K7F must be bitwise the symmetric path's), on the hand
 batch, and on depth-6 heaps holding every heap class; all four kernels
 bitwise equal over two launches; then times each at P = 200, n = 160
-(K7F also at (160, 8), (8, 8) and (512, 512), K7B at (512, 512)) beside
-its plain version and, for K6a/K6b, the library call.  Phase 5 logs the
-fitted ensemble's heap classes.
+(K7F also at (160, 8), (8, 8) and (512, 512), K7B at (512, 512) and on
+the "pallas" weekly fit's own heap classes) beside
+its plain version and, for K6a/K6b, the library call.  Phases 4 and 5 log
+the fitted ensembles' heap classes.
 
 Launch counts of every kernel are set to 0 just before phases 3, 4 and 5
 (and before phase 5's forecast) and read just after each.  Prints
@@ -174,6 +177,37 @@ def _population(P, n, seed, n_active=None, depth=5):
     rng = np.random.default_rng(seed)
     ts, ps = zip(*[sample_particle(rng, cfg)[:2] for _ in range(P)])
     return _batch(np.stack(ts), np.stack(ps), rng, n, n_active)
+
+
+# The heap classes of two fitted ensembles at seed 2 (this script's logs):
+# the "pallas" path's weekly fit and the daily fit at capacity 576, whose
+# composed step is K4/K5's main traffic.
+FITTED_WEEKLY_CLASSES = {3: 154, 7: 28, 15: 5, 31: 13}
+FITTED_DAILY_CLASSES = {15: 8, 31: 192}
+
+
+def _population_of(classes, n, seed):
+    """Prior trees drawn in order, each kept while its heap class still
+    lacks particles, until the heap classes are ``classes`` ({class:
+    particles}); x, y and noise as ``_population``'s."""
+    import torch
+
+    from nowcastautogp_tpu_torch.models.config import GPConfig
+    from nowcastautogp_tpu_torch.models.structures import sample_particle
+    from nowcastautogp_tpu_torch.ops.cov import heap_class
+
+    cfg = GPConfig(max_depth=5)
+    rng = np.random.default_rng(seed)
+    want = dict(classes)
+    ts, ps = [], []
+    while any(want.values()):
+        t, p = sample_particle(rng, cfg)[:2]
+        c = int(heap_class(torch.as_tensor(t)[None])[0])
+        if want.get(c, 0) > 0:
+            want[c] -= 1
+            ts.append(t)
+            ps.append(p)
+    return _batch(np.stack(ts), np.stack(ps), rng, n, None)
 
 
 def _hand_batch(n, seed, n_active=None):
@@ -389,11 +423,12 @@ def _inv_core(X, ym):
 
 
 def cov_inverse_parity():
-    """Hold K4, K5 and K3 against their plain versions; returns max abs
-    errors (K3's relative to each particle's largest |L^-1| entry)."""
+    """Hold K4, K5 and K3 against their plain versions, and K4 against
+    K7F's symmetric path (bitwise); returns max abs errors (K3's relative
+    to each particle's largest |L^-1| entry)."""
     import torch
 
-    from nowcastautogp_tpu_torch.ops import chol_mxu, megacov
+    from nowcastautogp_tpu_torch.ops import chol_mxu, cov, megacov
 
     # P = 200 at the main paths' shapes: n = 160 is the weekly nowcast's
     # K(x, x) (x shared by all particles), n = 576 the daily fit's composed
@@ -485,6 +520,17 @@ def cov_inverse_parity():
           "K3: the broken lane changed its neighbours")
     log("parity ok: non-SPD particle isolated in K3; K3/K4/K5 bitwise "
         "equal over two launches")
+
+    # K4 and K7F's symmetric path run the same tile code: the same bits
+    for n in (160, 512):
+        types, params = _population(200, n, seed=n + 3)[:2]
+        x = torch.linspace(0, 1, n, device=DEVICE)
+        check(_bitwise(megacov.megacov_fwd(types, params,
+                                           x.expand(200, n).contiguous()),
+                       cov.cov_fwd(types, params, x, x)),
+              f"K4 differs from K7F's symmetric path at n = {n}")
+    log("parity ok: K4 bitwise equal to K7F's symmetric path at n = 160 "
+        "and 512")
     return err
 
 
@@ -833,7 +879,9 @@ def kernel_timing():
     at P = 200, n = 576 (the daily fit's composed step), K6a/K6b/K7F/K7B at
     P = 200, n = 160 (the "pallas" path's weekly fit; K(x, x), the
     symmetric path), K7F also at the forecast's K(x, xs) (160, 8) and
-    K(xs, xs) (8, 8) and at (512, 512), K7B also at (512, 512).  Every
+    K(xs, xs) (8, 8) and at (512, 512), K7B also at (512, 512) and on the
+    fitted weekly ensemble's heap classes; K4/K5 also at n = 160 and 2048
+    and on the fitted daily ensemble's heap classes at 576.  Every
     kernel by the device's clock (``_time_ms``) and one call at a time
     (``_host_ms``); the plain versions, library calls and the composed LML
     core (value + gradient, value only, at n = 160, 512 and 576), their
@@ -868,8 +916,32 @@ def kernel_timing():
         L = torch.linalg.cholesky_ex(A)[0]
         return torch.linalg.solve_triangular(L, eye, upper=False)
 
+    log(f"heap classes of the K4/K5 timing population: "
+        f"{_class_histogram(types)}")
     _kernel_ms(ms, "K4", lambda: megacov.megacov_fwd(types, params, x))
     _kernel_ms(ms, "K5", lambda: megacov.megacov_bwd(types, params, x, dK))
+    # K4/K5 also on the daily fit's own heap classes at n = 576 (its
+    # composed step's traffic), at the nowcast's K(x, x), n = 160, and at
+    # the composed path's largest capacity, 2048 (the timing trees)
+    t_d, p_d, _, _, x_d, _ = _population_of(FITTED_DAILY_CLASSES, 576, 5)
+    log(f"heap classes of the K4/K5 daily-fitted-like population: "
+        f"{_class_histogram(t_d)}")
+    _kernel_ms(ms, "K4_daily", lambda: megacov.megacov_fwd(t_d, p_d, x_d))
+    _kernel_ms(ms, "K5_daily",
+               lambda: megacov.megacov_bwd(t_d, p_d, x_d, dK))
+    b_d = _bounds(t_d, 576)
+    bounds.update({"K4_daily": b_d["K4"], "K5_daily": b_d["K5"]})
+    for n, reps in ((160, (3, 20)), (2048, (1, 5))):
+        t_n, p_n, _, _, x_n, _ = _population(200, n, seed=9)
+        dK_n = torch.randn((200, n, n), device=DEVICE,
+                           generator=torch.Generator(DEVICE).manual_seed(n))
+        _kernel_ms(ms, f"K4_n{n}", lambda: megacov.megacov_fwd(t_n, p_n, x_n),
+                   *reps)
+        _kernel_ms(ms, f"K5_n{n}",
+                   lambda: megacov.megacov_bwd(t_n, p_n, x_n, dK_n), *reps)
+        b_n = _bounds(t_n, n)
+        bounds.update({f"K4_n{n}": b_n["K4"], f"K5_n{n}": b_n["K5"]})
+        del dK_n
     _kernel_ms(ms, "K3", lambda: chol_mxu.tri_inv(A))
     ms.update({
         "K3_plain": _burst_ms(lambda: chol_mxu.tri_inv_plain(A)),
@@ -947,6 +1019,10 @@ def kernel_timing():
     _kernel_ms(ms, "K7B", lambda: cov.cov_bwd(types, params, x1, x1, dK))
     _kernel_ms(ms, "K7B_n512",
                lambda: cov.cov_bwd(types, params, x512, x512, dK512))
+    # K7B also on the "pallas" weekly fit's own heap classes
+    t_f, p_f = _population_of(FITTED_WEEKLY_CLASSES, 160, 5)[:2]
+    _kernel_ms(ms, "K7B_fitted", lambda: cov.cov_bwd(t_f, p_f, x1, x1, dK))
+    bounds["K7B_fitted"] = _bounds(t_f, 160)["K7B"]
     ms.update({
         "K6a_plain": _burst_ms(lambda: chol.chol_solve_plain(A, ym)),
         "K6a_library": _burst_ms(library_solve),
@@ -1104,6 +1180,8 @@ def _daily_data(ngp, seed, n_train, horizon):
 
 
 def daily(seed=2, n_particles=200, n_train=560, horizon=28, draws=2000):
+    import torch
+
     import nowcastautogp_tpu_torch as ngp
 
     dates, obs, data, inv = _daily_data(ngp, seed, n_train, horizon)
@@ -1115,6 +1193,8 @@ def daily(seed=2, n_particles=200, n_train=560, horizon=28, draws=2000):
     fit_s = time.time() - t0
     fit_launches = _counters()
     fit_sha256 = _fingerprint(model)
+    classes = _class_histogram(torch.as_tensor(model._host_types))
+    log(f"daily: heap classes of the fitted ensemble: {classes}")
     t0 = time.time()
     fc = ngp.forecast(model, dates[n_train:], draws, inv_transformation=inv)
     _sync()
@@ -1130,7 +1210,8 @@ def daily(seed=2, n_particles=200, n_train=560, horizon=28, draws=2000):
     crps, cover90 = _score(ngp, fc, obs[n_train:])
     return {"fit_s": fit_s, "forecast_s": forecast_s, "log_crps": crps,
             "coverage90": cover90, "fit_sha256": fit_sha256,
-            "fit_launches": fit_launches, "launches": launches}
+            "fit_classes": classes, "fit_launches": fit_launches,
+            "launches": launches}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1236,18 +1317,21 @@ def main():
          "pallas_megalml.py:417", "K2_plain", None),
         ("K3", "tri_inv_kernel (blocked Cholesky inverse L^-1)",
          "chol_mxu.cu", "chol_mxu.py:253", "K3_plain", "K3_library"),
-        ("K4", "megacov_fwd_kernel (batched covariance)", "megacov.cu",
-         "pallas_megacov.py:341", "K4_plain", None),
-        ("K5", "megacov_bwd_kernel (covariance VJP)", "megacov.cu",
-         "pallas_megacov.py:518", "K5_plain", None),
+        ("K4", "megacov_fwd: cov_fwd_kernel, class-switched (batched "
+         "K(x_p, x_p))", "covtile.cuh", "pallas_megacov.py:341", "K4_plain",
+         None),
+        ("K5", "megacov_bwd: cov_bwd_kernel, launches by heap class, + tile "
+         "reduction (its VJP)", "covtile.cuh", "pallas_megacov.py:518",
+         "K5_plain", None),
         ("K6a", "chol_solve_kernel (blocked Cholesky L and alpha)", "chol.cu",
          "pallas_chol.py:204", "K6a_plain", "K6a_library"),
         ("K6b", "tri_inverse_kernel (L^-1 from a Cholesky factor)", "chol.cu",
          "pallas_chol.py:265", "K6b_plain", "K6b_library"),
-        ("K7F", "cov_fwd_kernel (one tree's K(x1, x2))", "cov.cu",
-         "pallas_cov.py:114", "K7F_plain", None),
-        ("K7B", "cov_bwd_kernel (VJP of K(x1, x2))", "cov.cu",
-         "pallas_cov.py:125", "K7B_plain", None),
+        ("K7F", "cov_fwd: cov_fwd_kernel (one tree's K(x1, x2))",
+         "covtile.cuh", "pallas_cov.py:114", "K7F_plain", None),
+        ("K7B", "cov_bwd: cov_bwd_kernel, launches by heap class, + tile "
+         "reduction (VJP of K(x1, x2))", "covtile.cuh", "pallas_cov.py:125",
+         "K7B_plain", None),
     ]
     # K1/K2 also at the daily fit's n = 512, each beside the composed core
     # (value + gradient for K1, value for K2) at its own n as the yardstick
@@ -1256,7 +1340,10 @@ def main():
              for k, kind in (("K1", "vag"), ("K2", "val"))}
     # each kernel's other shapes: ms (device clock), host_ms, bound_ms
     shapes = {"K1": ("n512",), "K2": ("n512",),
-              "K7F": ("n160_m8", "n8_m8", "n512"), "K7B": ("n512",)}
+              "K4": ("daily", "n160", "n2048"),
+              "K5": ("daily", "n160", "n2048"),
+              "K7F": ("n160_m8", "n8_m8", "n512"),
+              "K7B": ("n512", "fitted")}
     for k, tags in shapes.items():
         for tag in tags:
             extra.setdefault(k, {}).update({

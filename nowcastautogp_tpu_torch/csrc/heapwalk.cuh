@@ -1,5 +1,6 @@
 // Heap-encoded kernel-tree walks shared by the LML kernels (megalml.cu,
-// K1/K2) and the covariance kernels (megacov.cu, K4/K5; cov.cu, K7F/K7B).
+// K1/K2) and the covariance kernels (covtile.cuh: megacov.cu, K4/K5;
+// cov.cu, K7F/K7B).
 //
 // Device counterpart of nowcastautogp_tpu/ops/pallas_megacov.py's node
 // bodies (_node_fwd_body, _node_bwd_body): one element (x_i, x_j) of
@@ -11,9 +12,9 @@
 //
 // Every kernel that includes this header runs the same node bodies, so the
 // covariance the LML kernels assemble and the one K4 returns are the same
-// float function of (params, x).  K7F/K7B walk only the first heap_class
-// slots of each tree and skip its empty slots (SKIP_EMPTY); the others walk
-// all N slots.
+// float function of (params, x).  The covariance kernels (covtile.cuh: K4/K5
+// and K7F/K7B) walk only the first heap_class slots of each tree and skip
+// its empty slots (SKIP_EMPTY); K1/K2 walk all N slots.
 
 #pragma once
 
@@ -201,19 +202,22 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The heap class of a block's tree: the smallest complete heap, 2^d - 1
-// slots, that holds every live slot of nd[0 .. N).  Heap slots are level
-// ordered, so the first class slots hold the whole tree and every later
-// slot is empty.  Every warp computes it from shared memory (N <= 64);
-// call it with the whole warp active.
-__device__ __forceinline__ int heap_class(const Node* nd, int N) {
-  const int lane = threadIdx.x & 31;
-  const unsigned lo =
-      __ballot_sync(0xffffffffu, lane < N && nd[lane].type != EMPTY);
-  const unsigned hi =
-      __ballot_sync(0xffffffffu, lane + 32 < N && nd[lane + 32].type != EMPTY);
+// The heap class of a tree whose live slots 0 .. 63 are the bits of lo
+// and hi: the smallest complete heap, 2^d - 1 slots, that holds every live
+// slot.  Heap slots are level ordered, so the first class slots hold the
+// whole tree and every later slot is empty.
+__device__ __forceinline__ int class_of(unsigned lo, unsigned hi) {
   const int top = hi ? 63 - __clz(hi) : (lo ? 31 - __clz(lo) : 0);
   return (2 << (31 - __clz(top + 1))) - 1;
+}
+
+// The heap class of a block's tree nd[0 .. N).  Every warp computes it from
+// shared memory (N <= 64); call it with the whole warp active.
+__device__ __forceinline__ int heap_class(const Node* nd, int N) {
+  const int lane = threadIdx.x & 31;
+  return class_of(
+      __ballot_sync(0xffffffffu, lane < N && nd[lane].type != EMPTY),
+      __ballot_sync(0xffffffffu, lane + 32 < N && nd[lane + 32].type != EMPTY));
 }
 
 // Load heap nodes of particle p into shared memory (block-strided).

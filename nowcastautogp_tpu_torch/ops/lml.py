@@ -123,8 +123,17 @@ class InvCoreFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, c):
         Ainv, alpha = ctx.saved_tensors
-        dA = (0.5 * c)[:, None, None] * (alpha[:, :, None] * alpha[:, None, :]
-                                         - Ainv)
+        # alpha alpha^T - A^-1 cancels to a small matrix; on a near-rank-one
+        # A its entries are nearly equal, so float32 products and differences
+        # round them all the same way and the covariance VJP's sum over n^2
+        # entries carries that bias.  Form it in float64, round once.  Two
+        # passes over P n^2 elements (the difference in float64, then the
+        # scale rounded into A's dtype), not CholCoreFn's five: at n = 576
+        # those cost a tenth of the composed core's value + gradient.
+        a = alpha.double()
+        diff = torch.addcmul(Ainv, a[:, :, None], a[:, None, :], value=-1)
+        dA = torch.mul(diff, (-0.5 * c.double())[:, None, None],
+                       out=torch.empty_like(Ainv))
         return dA, -c[:, None] * alpha
 
 

@@ -12,9 +12,12 @@
 
 On a CUDA tensor the wrappers launch their kernel or raise: a shape
 outside the envelope (N in {7, 15, 31, 63}, 8 <= n <= 2048, n % 8 == 0)
-or a failed launch is an error, never a fallback.  The kernels replace
-``pallas_megacov.py::_cov_fwd_kernel`` (K4) and ``::_cov_bwd_kernel`` (K5);
-``csrc/megacov.cu`` says what bounds them and how.
+or a failed launch is an error, never a fallback.  Each wrapper call is one
+C call and one count, though it runs a launch per heap class.  The kernels
+replace ``pallas_megacov.py::_cov_fwd_kernel`` (K4) and
+``::_cov_bwd_kernel`` (K5); they are the symmetric path of K7F/K7B's tile
+code (``csrc/covtile.cuh``, which says what bounds them; ``csrc/megacov.cu``
+its plan for K4/K5), so K4 gives K7F's bits.
 """
 
 from __future__ import annotations

@@ -190,6 +190,32 @@ def _spd(dev, n, n_active, seed=1):
     return (types, params, x), A.contiguous(), ym
 
 
+@pytest.mark.parametrize("N", [31, 63])
+def test_vjp_launch_plans_agree_bitwise(dev, N):
+    """K5 and K7B take one launch per heap class on a large grid and two
+    class-switched launches on a small one (covtile.cuh's
+    CLASS_LAUNCH_BLOCKS): 150 particles of every class at n = 512 (20,400
+    blocks) against the same particles 6 at a time (816 blocks), bitwise."""
+    classes = [c for c in (1, 3, 7, 15, 31, 63) if c <= N]
+    P, n = 150, 512
+    types = torch.tensor(np.stack([_chain_heap(classes[i % len(classes)] - 1,
+                                               N) for i in range(P)]),
+                         device=dev)
+    rng = np.random.default_rng(N)
+    params = torch.tensor(rng.normal(0.0, 0.5, (P, N, 3)),
+                          dtype=torch.float32, device=dev)
+    x = torch.linspace(0, 1, n, device=dev)
+    xp = x.expand(P, n).contiguous()
+    dK = torch.randn((P, n, n), generator=torch.Generator(dev).manual_seed(N),
+                     device=dev)
+    for fn in (lambda s: cov.cov_bwd(types[s], params[s], x, x, dK[s]),
+               lambda s: megacov.megacov_bwd(types[s], params[s], xp[s],
+                                             dK[s])):
+        whole = fn(slice(None))
+        parts = torch.cat([fn(slice(i, i + 6)) for i in range(0, P, 6)])
+        assert torch.equal(whole, parts)
+
+
 @pytest.mark.parametrize("n", [96, 576])
 def test_covariance_kernels_match_plain(dev, n):
     (types, params, x), _, _ = _spd(dev, n, n - 11)
@@ -203,6 +229,17 @@ def test_covariance_kernels_match_plain(dev, n):
     tol = 2e-4 if n <= 128 else 2e-3
     torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
     assert torch.equal(got, megacov.megacov_bwd(types, params, x, dK))
+    assert torch.equal(K, megacov.megacov_fwd(types, params, x))
+
+
+def test_k4_is_k7f_symmetric_path(dev):
+    """K4 (per-particle x) and K7F's symmetric path (one shared x) run the
+    same tile code: bitwise the same covariance at the nowcast's n = 160."""
+    types, params = _batch(dev)[:2]
+    x = torch.linspace(0, 1, 160, device=dev)
+    K4 = megacov.megacov_fwd(types, params,
+                             x.expand(types.shape[0], 160).contiguous())
+    assert torch.equal(K4, cov.cov_fwd(types, params, x, x))
 
 
 @pytest.mark.parametrize("n", [96, 576, 1024])
@@ -326,7 +363,8 @@ def test_symmetric_and_general_paths(dev, n):
 
 @pytest.mark.parametrize("N", [7, 15, 31, 63])
 def test_every_heap_class(dev, N):
-    """Trees of every class up to the heap size N, symmetric and general."""
+    """Trees of every class up to the heap size N: K7F/K7B on the symmetric
+    and general paths, K4/K5."""
     classes = [c for c in (1, 3, 7, 15, 31, 63) if c <= N]
     types = torch.tensor(np.stack([_chain_heap(c - 1, N) for c in classes]),
                          device=dev)
@@ -348,6 +386,26 @@ def test_every_heap_class(dev, N):
             atol=2e-4)
         for i, c in enumerate(classes):
             assert not got[i, c:].any()
+    # K4/K5 (one launch per class) at n = 96 and a ragged n = 584 (584 % 32
+    # = 8), an asymmetric cotangent; both bitwise over two launches
+    for n in (96, 584):
+        x = torch.linspace(0, 1, n, device=dev).expand(len(classes), n)
+        x = x.contiguous()
+        K = megacov.megacov_fwd(types, params, x)
+        torch.testing.assert_close(
+            K, megacov.megacov_fwd_plain(types, params, x), rtol=1e-5,
+            atol=1e-5)
+        dK = torch.randn(K.shape, generator=torch.Generator(dev).manual_seed(n),
+                         device=dev)
+        got = megacov.megacov_bwd(types, params, x, dK)
+        tol = 2e-4 if n <= 128 else 2e-3
+        torch.testing.assert_close(
+            got, megacov.megacov_bwd_plain(types, params, x, dK), rtol=tol,
+            atol=tol)
+        for i, c in enumerate(classes):
+            assert not got[i, c:].any()
+        assert torch.equal(K, megacov.megacov_fwd(types, params, x))
+        assert torch.equal(got, megacov.megacov_bwd(types, params, x, dK))
 
 
 @pytest.mark.parametrize("n", [96, 576])

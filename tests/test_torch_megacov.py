@@ -256,3 +256,39 @@ def test_lml_beyond_the_envelope_raises():
 def test_kernel_envelopes(n_nodes, n_pts, cov_ok, inv_ok):
     assert megacov.megacov_supported(n_nodes, n_pts) is cov_ok
     assert chol_mxu.mxu_supported(n_pts) is inv_ok
+
+
+def _lone_constant(n=544, n_active=530, seed=0):
+    """Particle 0 of ``tests/test_torch_cuda.py::_batch(n=544, n_active=530,
+    seed=0)``: a lone Constant, whose covariance is rank one, at P = 1.  The
+    draws are made in that batch's order and shapes (9 particles, 31 slots)
+    and then sliced."""
+    rng = np.random.default_rng(seed)
+    P = 9
+    params = rng.normal(0.0, 0.5, (P, 31, 3)).astype(np.float32)[:1]
+    types = np.zeros((1, 31), np.int32)
+    types[0, 0] = st.CONST
+    params[types == 0] = 0.0
+    mask = (np.arange(n) < n_active).astype(np.float32)[None]
+    diagv = mask * (np.exp(rng.normal(-2.0, 0.3, (P, 1)))[:1] + 1e-5) + 1 - mask
+    x = np.linspace(0, 1, n)[None]
+    ym = rng.normal(0.0, 1.0, (P, n))[:1] * mask
+    return types, params, diagv, mask, x, ym
+
+
+def test_composed_core_cotangent_keeps_float64_digits():
+    """On a rank-one covariance alpha alpha^T - A^-1 cancels to a small
+    matrix; formed in float32 the parameter gradient misses float64 by 3.9x
+    the gradient tolerance.  The core forms it in float64 and rounds once."""
+    types, *rest = _lone_constant()
+    grads = {}
+    for dtype in (torch.float32, torch.float64):
+        params, diagv, mask, x, ym = (torch.tensor(a, dtype=dtype)
+                                      for a in rest)
+        p = params.requires_grad_(True)
+        lml.lml_core_composed(torch.tensor(types), p, diagv, mask, x,
+                              ym).sum().backward()
+        grads[dtype] = p.grad.double()
+    g32, g64 = grads[torch.float32], grads[torch.float64]
+    ratio = ((g32 - g64).abs() / (GRAD_ATOL + GRAD_RTOL * g64.abs())).max()
+    assert float(ratio) <= 1.0, float(ratio)
