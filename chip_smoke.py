@@ -44,7 +44,18 @@ Phases (any failure exits nonzero before the final line):
    core from K6a/K6b), then ``forecast(..., forecast_n_hmc=1)`` of the 8
    weeks after the training window with 100 draws, scored the same way;
    K1-K5 must not launch, and K6a/K6b/K7F/K7B launch exactly the counts
-   the schedule gives.
+   the schedule gives;
+6. nowcast refresh and device engine: phase 3's weekly fit again under
+   ``engine="device"``, then on phase 3's fitted model
+   ``forecast_with_nowcasts`` through each refresh branch -- the
+   examples' ``n_hmc=1, ess_threshold=0.5`` at S = 100, ``n_mcmc=1,
+   n_hmc=1`` and ``forecast_n_hmc=1`` at S = 20, and the serial branch
+   (three scenarios, one lacking the last nowcast date) -- each with its
+   K1/K2 counts asserted and scored the same way, and K1/K2 ms on the
+   refresh's S x P rows; last the batched branch on phase 4's daily model
+   at capacity 576 and S = 20, where the scenario chunk binds (16 of 20
+   scenarios a chunk), with its peak device memory held under the chunk
+   budget.
 
 Phase 2 also holds K6a (L, alpha), K6b (L^-1) and the core built on them
 (value and gradients) at P = 200 and n in {32, 64, 96, 128, 160, 576}
@@ -61,7 +72,8 @@ its plain version and, for K6a/K6b, the library call.  Phases 4 and 5 log
 the fitted ensembles' heap classes.
 
 Launch counts of every kernel are set to 0 just before phases 3, 4 and 5
-(and before phase 5's forecast) and read just after each.  Prints
+(and before phase 5's forecast and each part of phase 6) and read just
+after each.  Prints
 per-phase seconds, a JSON line of results, the ``kernels`` line, the
 ``nvidia-smi`` name/power line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -1095,17 +1107,18 @@ def _weekly_data(ngp, seed, n_train, n_total):
     return dates, obs, data, fwd, inv
 
 
-def _weekly_fit(ngp, data, seed, n_particles):
+def _weekly_fit(ngp, data, seed, n_particles, engine="host"):
     return ngp.make_and_fit_model(
         data, n_particles=n_particles, smc_data_proportion=0.1,
         n_mcmc=14, n_hmc=5, seed=seed, config=ngp.GPConfig(max_depth=5),
-        hmc_config=ngp.HMCConfig(n_leapfrog=5), device=DEVICE)
+        hmc_config=ngp.HMCConfig(n_leapfrog=5), engine=engine,
+        device=DEVICE)
 
 
-def weekly(seed=2, n_particles=200, n_train=150, n_scenarios=100,
-           draws_per=20, horizon=8):
-    import nowcastautogp_tpu_torch as ngp
-
+def _weekly_nowcasts(ngp, seed, n_train, n_scenarios, horizon):
+    """bench.py's weekly series, fit data and nowcast scenarios: the two
+    weeks after the training window, still being revised, and the 8
+    forecast weeks after them."""
     dates, obs, data, fwd, inv = _weekly_data(ngp, seed, n_train,
                                               n_train + 2 + horizon)
     rng = np.random.default_rng(seed + 1)
@@ -1116,6 +1129,20 @@ def weekly(seed=2, n_particles=200, n_train=150, n_scenarios=100,
                                   transformation=fwd)
     f_dates = [nc_dates[-1] + dt.timedelta(weeks=i + 1)
                for i in range(horizon)]
+    return {"data": data, "fwd": fwd, "inv": inv, "ncs": ncs,
+            "nc_dates": nc_dates, "nc_draws": nc_draws, "f_dates": f_dates,
+            "truth": obs[n_train + 2:n_train + 2 + horizon]}
+
+
+def weekly(seed=2, n_particles=200, n_train=150, n_scenarios=100,
+           draws_per=20, horizon=8):
+    """Phase 3; returns its results and, for phase 6, the fitted model and
+    its nowcast inputs."""
+    import nowcastautogp_tpu_torch as ngp
+
+    ctx = _weekly_nowcasts(ngp, seed, n_train, n_scenarios, horizon)
+    data, inv, ncs, f_dates = (ctx[k] for k in ("data", "inv", "ncs",
+                                                "f_dates"))
 
     _reset_counters()
     _sync()
@@ -1141,10 +1168,11 @@ def weekly(seed=2, n_particles=200, n_train=150, n_scenarios=100,
           f"weekly K1/K2 launches {launches['K1']}/{launches['K2']}, "
           "expected 3640/150")
     check(launches["K4"] > 0, "K4 was not launched on the weekly path")
-    crps, cover90 = _score(ngp, fc, obs[n_train + 2:n_train + 2 + horizon])
+    crps, cover90 = _score(ngp, fc, ctx["truth"])
+    ctx["model"] = model
     return {"fit_s": fit_s, "nowcast_s": nowcast_s, "log_crps": crps,
             "coverage90": cover90, "fit_sha256": _fingerprint(model),
-            "launches": launches}
+            "launches": launches}, ctx
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1176,7 +1204,7 @@ def _daily_data(ngp, seed, n_train, horizon):
     fwd, inv = ngp.get_transformations("boxcox", obs[:n_train])
     data = ngp.create_transformed_data(dates[:n_train], obs[:n_train],
                                        transformation=fwd)
-    return dates, obs, data, inv
+    return dates, obs, data, fwd, inv
 
 
 def daily(seed=2, n_particles=200, n_train=560, horizon=28, draws=2000):
@@ -1184,7 +1212,7 @@ def daily(seed=2, n_particles=200, n_train=560, horizon=28, draws=2000):
 
     import nowcastautogp_tpu_torch as ngp
 
-    dates, obs, data, inv = _daily_data(ngp, seed, n_train, horizon)
+    dates, obs, data, fwd, inv = _daily_data(ngp, seed, n_train, horizon)
     _reset_counters()
     _sync()
     t0 = time.time()
@@ -1208,10 +1236,12 @@ def daily(seed=2, n_particles=200, n_train=560, horizon=28, draws=2000):
     for k in ("K1", "K2", "K3", "K4", "K5"):
         check(launches[k] > 0, f"{k} was not launched on the daily path")
     crps, cover90 = _score(ngp, fc, obs[n_train:])
+    ctx = {"model": model, "dates": dates, "obs": obs, "fwd": fwd,
+           "inv": inv, "n_train": n_train}
     return {"fit_s": fit_s, "forecast_s": forecast_s, "log_crps": crps,
             "coverage90": cover90, "fit_sha256": fit_sha256,
             "fit_classes": classes, "fit_launches": fit_launches,
-            "launches": launches}
+            "launches": launches}, ctx
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1277,6 +1307,198 @@ def pallas_weekly(seed=2, n_particles=200, n_train=150, horizon=8,
             "launches": launches}
 
 
+# ------------------------------------------------------------------ phase 6
+
+
+def _nowcast_part(name, ngp, ctx, fn, want=None, kernels=("K1", "K2")):
+    """One part of phase 6: the launch counts set to 0, ``fn()`` -> the
+    forecast (horizon, columns), checked and scored against the held-out
+    truth; ``want`` the exact K1/K2 counts the part must launch; each of
+    ``kernels`` must launch."""
+    _reset_counters()
+    _sync()
+    t0 = time.time()
+    fc = fn()
+    _sync()
+    seconds = time.time() - t0
+    launches = _counters()
+    counts = {k: launches[k] for k in ("K1", "K2", "K3", "K4", "K5")}
+    log(f"nowcast/{name}: {seconds:.3f} s, launches {counts}")
+    check(bool(np.all(np.isfinite(fc)) and np.all(fc >= 0)),
+          f"{name}: forecast has non-finite or negative draws")
+    if want is not None:
+        check((counts["K1"], counts["K2"]) == want,
+              f"{name}: K1/K2 launches {counts['K1']}/{counts['K2']}, "
+              f"expected {want[0]}/{want[1]}")
+    for k in kernels:
+        check(counts[k] > 0, f"{name}: {k} was not launched")
+    crps, cover90 = _score(ngp, fc, ctx["truth"])
+    return {"seconds": seconds, "columns": fc.shape[1], "log_crps": crps,
+            "coverage90": cover90, "launches": launches}
+
+
+def _k1_at_rows(ngp, model, ncs):
+    """ms per K1 and K2 launch (one call at a time; each call is long, so
+    host work is negligible) on the nowcast refresh's rows: the fitted
+    ensemble tiled over the scenarios, with their nowcast buffers."""
+    import torch
+
+    from nowcastautogp_tpu_torch import nowcast
+    from nowcastautogp_tpu_torch.ops import lml, megalml
+
+    S, P = len(ncs), model.num_particles
+    x_row, y_rows, _, mask_new = nowcast._scenario_buffers(model, ncs)
+    t = model._tensor
+    R, cap = S * P, x_row.shape[0]
+    mask = t(mask_new).expand(R, cap).contiguous()
+    args = (model._types_d().repeat(S, 1), model._params_d.repeat(S, 1, 1),
+            (mask * (torch.exp(model._log_noise_d.repeat(S))[:, None]
+                     + lml.DEFAULT_JITTER) + (1 - mask)).contiguous(),
+            mask, t(x_row).expand(R, cap).contiguous(),
+            (t(np.repeat(y_rows, P, axis=0)) * mask).contiguous())
+    k1 = _host_ms(lambda: megalml.megalml_vag(*args), warmup=1, runs=5)[0]
+    k2 = _host_ms(lambda: megalml.megalml_val(*args), warmup=1, runs=5)[0]
+    return {"rows": R, "capacity": cap, "K1_ms": k1, "K2_ms": k2}
+
+
+def _chunked_refresh(ngp, dy_ctx, n_scenarios=20, draws_per=20,
+                     horizon=26):
+    """The batched branch where its scenario chunk binds: phase 4's daily
+    model at capacity 576 (the composed K4 -> K3 -> K5 path), nowcasts of
+    the two days after its training window, ``n_hmc=1``.  Returns the
+    part's results with the chunk, the peak device bytes above what was
+    allocated before the call, and the same per row beside the budget."""
+    import torch
+
+    from nowcastautogp_tpu_torch import nowcast
+
+    model, dates, obs, n0 = (dy_ctx[k] for k in ("model", "dates", "obs",
+                                                 "n_train"))
+    rng = np.random.default_rng(7)
+    nc_draws = obs[n0:n0 + 2] * rng.lognormal(0.1, 0.027,
+                                              size=(n_scenarios, 2))
+    ncs = ngp.create_nowcast_data(list(nc_draws), dates[n0:n0 + 2],
+                                  transformation=dy_ctx["fwd"])
+    cap = nowcast._scenario_cap(model, ncs[0].ds)
+    chunk = nowcast._scenario_chunk(model, ncs)
+    check(cap == 576 and chunk < n_scenarios,
+          f"chunked refresh: capacity {cap}, chunk {chunk} of "
+          f"{n_scenarios}: the budget does not bind")
+    truth_ctx = {"truth": obs[n0 + 2:n0 + 2 + horizon]}
+    _sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = _nowcast_part(
+        f"chunked (n_hmc=1, S={n_scenarios}, capacity {cap})", ngp,
+        truth_ctx, lambda: ngp.forecast_with_nowcasts(
+            model, ncs, dates[n0 + 2:n0 + 2 + horizon], draws_per,
+            inv_transformation=dy_ctx["inv"], n_hmc=1),
+        kernels=("K3", "K4", "K5"))
+    peak = torch.cuda.max_memory_allocated() - base
+    rows = chunk * model.num_particles
+    budget_row = nowcast._ROW_MATRICES * cap * cap * 4
+    out.update({"capacity": cap, "chunk": chunk, "peak_bytes": peak,
+                "peak_bytes_per_row": peak / rows,
+                "budget_bytes_per_row": budget_row,
+                "budget_bytes": nowcast._CHUNK_BYTES})
+    log(f"chunked refresh: {chunk} scenarios a chunk, peak {peak} B above "
+        f"the model ({peak / rows:.0f} B a row, budget {budget_row} B)")
+    check(peak <= nowcast._CHUNK_BYTES,
+          f"chunked refresh: peak {peak} B over the budget "
+          f"{nowcast._CHUNK_BYTES} B")
+    return out
+
+
+def nowcast_refresh(wk_ctx, dy_ctx, seed=2, n_particles=200, n_train=150,
+                    draws_per=20, horizon=8, small_s=20):
+    """Phase 6: the weekly fit again under the device-proposal engine, then
+    the nowcast refresh branches on phase 3's fitted model (no new fit):
+    the examples' call (``n_hmc=1, ess_threshold=0.5``, S = 100, the
+    batched branch), the batched MCMC refresh (``n_mcmc=1, n_hmc=1``,
+    S = 20, through ``rejuvenation_sweep``), per-draw HMC
+    (``forecast_n_hmc=1``, S = 20, the nowcast scan) and the serial branch
+    (three scenarios whose date axes differ, ``n_hmc=1``); then the
+    batched branch in chunks on phase 4's daily model
+    (``_chunked_refresh``)."""
+    import torch
+
+    import nowcastautogp_tpu_torch as ngp
+
+    out = {}
+    ctx = _weekly_nowcasts(ngp, seed, n_train, len(wk_ctx["ncs"]), horizon)
+    _reset_counters()
+    _sync()
+    t0 = time.time()
+    dmodel = _weekly_fit(ngp, ctx["data"], seed, n_particles, engine="device")
+    _sync()
+    fit_s = time.time() - t0
+    fit_launches = _counters()
+    classes = _class_histogram(torch.as_tensor(dmodel._host_types))
+    log(f"device engine: heap classes of the fitted ensemble: {classes}")
+    # 10 steps: one reweight (K2) each; one gradient call to seed the sweep,
+    # then 14 moves x (1 proposal + 5 HMC x 5 leapfrog) gradient calls
+    check((fit_launches["K1"], fit_launches["K2"]) == (3650, 10),
+          f"device-engine fit K1/K2 launches {fit_launches['K1']}/"
+          f"{fit_launches['K2']}, expected 3650/10")
+    t0 = time.time()
+    fc = ngp.forecast_with_nowcasts(dmodel, ctx["ncs"], ctx["f_dates"],
+                                    draws_per, inv_transformation=ctx["inv"],
+                                    ess_threshold=0.5)
+    _sync()
+    nowcast_s = time.time() - t0
+    crps, cover90 = _score(ngp, fc, ctx["truth"])
+    out["device_engine"] = {
+        "fit_s": fit_s, "nowcast_s": nowcast_s, "log_crps": crps,
+        "coverage90": cover90, "fit_sha256": _fingerprint(dmodel),
+        "fit_classes": classes, "fit_launches": fit_launches}
+    del dmodel
+
+    model, ncs, f_dates, inv = (wk_ctx[k] for k in ("model", "ncs",
+                                                    "f_dates", "inv"))
+    before = _fingerprint(model)
+    torch.cuda.reset_peak_memory_stats()
+    # S = 100 x P = 200 rows: K2 twice (old and new LML), K1 once to seed
+    # HMC and once per leapfrog
+    out["examples"] = _nowcast_part(
+        "examples (n_hmc=1, S=100)", ngp, wk_ctx,
+        lambda: ngp.forecast_with_nowcasts(
+            model, ncs, f_dates, draws_per, inv_transformation=inv, n_hmc=1,
+            ess_threshold=0.5), want=(6, 2))
+    out["examples"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+    # the sweep: one gradient call at the start, then per move one for the
+    # proposal and one per leapfrog
+    out["mcmc"] = _nowcast_part(
+        "batched MCMC (n_mcmc=1, n_hmc=1, S=20)", ngp, wk_ctx,
+        lambda: ngp.forecast_with_nowcasts(
+            model, ncs[:small_s], f_dates, draws_per,
+            inv_transformation=inv, n_mcmc=1, n_hmc=1), want=(7, 2))
+    out["scan"] = _nowcast_part(
+        "per-draw HMC (forecast_n_hmc=1, S=20)", ngp, wk_ctx,
+        lambda: ngp.forecast_with_nowcasts(
+            model, ncs[:small_s], f_dates, draws_per,
+            inv_transformation=inv, forecast_n_hmc=1),
+        want=(6 * draws_per, 2))
+    # three scenarios; the third lacks the last nowcast date
+    nc_dates, nc_draws = wk_ctx["nc_dates"], wk_ctx["nc_draws"]
+    serial = ncs[:2] + ngp.create_nowcast_data(
+        [nc_draws[2][:1]], nc_dates[:1], transformation=wk_ctx["fwd"])
+    out["serial"] = _nowcast_part(
+        "serial (3 date axes, n_hmc=1)", ngp, wk_ctx,
+        lambda: ngp.forecast_with_nowcasts(
+            model, serial, f_dates, draws_per, inv_transformation=inv,
+            n_hmc=1, ess_threshold=0.5), want=(18, 3))
+    check(_fingerprint(model) == before,
+          "the nowcast branches changed the base model")
+    for part in ("examples", "mcmc", "scan"):
+        check(out[part]["launches"]["K4"] > 0,
+              f"nowcast/{part}: K4 was not launched")
+    out["rows"] = _k1_at_rows(ngp, model, ncs)
+    out["rows_small"] = _k1_at_rows(ngp, model, ncs[:small_s])
+    log(f"K1/K2 on the refresh rows: {out['rows']}, {out['rows_small']}")
+    out["chunked"] = _chunked_refresh(ngp, dy_ctx)
+    return out
+
+
 def main():
     import torch
 
@@ -1295,17 +1517,24 @@ def main():
     phases["timing"] = time.time() - t0
     log(f"ms per launch: {json.dumps(ms)}")
     t0 = time.time()
-    wk = weekly()
+    wk, wk_ctx = weekly()
     phases["weekly"] = time.time() - t0
     log(f"weekly: {json.dumps(wk)}")
     t0 = time.time()
-    dy = daily()
+    dy, dy_ctx = daily()
     phases["daily"] = time.time() - t0
     log(f"daily: {json.dumps(dy)}")
     t0 = time.time()
     pw = pallas_weekly()
     phases["pallas"] = time.time() - t0
     log(f"pallas: {json.dumps(pw)}")
+    t0 = time.time()
+    nc = nowcast_refresh(wk_ctx, dy_ctx)
+    phases["nowcast"] = time.time() - t0
+    del wk_ctx, dy_ctx
+    log(f"nowcast: {json.dumps(nc)}")
+    log(f"device-engine weekly fit {nc['device_engine']['fit_s']:.3f} s, "
+        f"host-engine {wk['fit_s']:.3f} s")
     log(f"phase seconds: {json.dumps(phases)}")
 
     csrc = "nowcastautogp_tpu_torch/csrc/"
@@ -1354,7 +1583,11 @@ def main():
     for k, name, src, tpu_src, plain, lib in table:
         bound_ms, bound_by = bounds[k]
         by_path = {"weekly": wk["launches"][k], "daily": dy["launches"][k],
-                   "pallas": pw["launches"][k]}
+                   "pallas": pw["launches"][k],
+                   "nowcast": nc["device_engine"]["fit_launches"][k]
+                   + sum(nc[part]["launches"][k] for part in
+                         ("examples", "mcmc", "scan", "serial",
+                          "chunked"))}
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": csrc + src,
             "replaces": tpu + tpu_src, "launches": sum(by_path.values()),
@@ -1365,7 +1598,7 @@ def main():
             "library_ms": ms[lib] if lib else None, **extra.get(k, {})})
     print(json.dumps({"phase_s": phases, "kernel_ms": ms,
                       "bounds_ms": bounds, "weekly": wk, "daily": dy,
-                      "pallas": pw}))
+                      "pallas": pw, "nowcast": nc}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Batched HMC over per-particle GP hyperparameters.
 
-Port of the JAX package's ``inference/hmc.py`` (``make_batched_potential``
-and the explicitly batched ``_hmc_batched``, here ``run_hmc``).  Every tensor carries the leading particle axis, data
-buffers included.  Inactive parameter slots (empty heap nodes, unused
-parameter slots) get zero momentum and zero gradient, so heterogeneous
+Port of the JAX package's ``inference/hmc.py``: ``make_batched_potential``
+and ``run_hmc`` (its ``_hmc_batched``, with the carried state exposed).
+Every tensor carries the leading particle axis, data buffers included.
+Inactive parameter slots (empty heap nodes, unused parameter slots) get
+zero momentum and zero gradient, so heterogeneous
 structures share one batched call.  The potential's value and gradient are
 carried across trajectories: a trajectory costs exactly ``n_leapfrog``
 gradient evaluations, each one K1 launch on the card.
@@ -64,12 +65,17 @@ def run_hmc(
     node_types, params, log_noise, prior_mu, prior_sigma, prior_active,
     x, y, mask, gen, *, n_steps, n_leapfrog, step_size, step_jitter,
     jitter, noise_mu=-2.0, noise_sigma=1.0, infer_noise=1.0, eps_scale=None,
+    init=None,
 ):
-    """``n_steps`` HMC trajectories for all particles at once.
+    """``n_steps`` HMC trajectories for all particles, with the carried
+    state exposed (the JAX package's ``_hmc_batched``).
 
-    Returns ``(params, log_noise, lml, accept_rate (P,), eps_scale)``;
-    ``lml`` is the cached masked LML of the final state and ``eps_scale``
-    the adapted per-particle step-size scales.
+    ``init``, when given, is ``(U0, lml0, g_p0, g_n0)``: the potential, LML
+    and gradients already evaluated at ``(params, log_noise)``, and the
+    initial evaluation is skipped (the device sweep carries them across
+    moves).  Returns ``(params, log_noise, lml, accept_rate (P,), eps_scale,
+    (U, g_p, g_n))``, the last the final state's potential and gradients,
+    valid for the same carrying.
     """
     P = params.shape[0]
     dev = params.device
@@ -79,7 +85,10 @@ def run_hmc(
         node_types, prior_mu, prior_sigma, prior_active,
         x, y, mask, jitter, noise_mu, noise_sigma, infer_noise,
     )
-    U0, lml, g_p, g_n = _value_and_grad(potential, params, log_noise)
+    if init is None:
+        U0, lml, g_p, g_n = _value_and_grad(potential, params, log_noise)
+    else:
+        U0, lml, g_p, g_n = init
     p, ln, scale = params.detach(), log_noise.detach(), eps_scale
     n_acc = torch.zeros(P, dtype=torch.float32, device=dev)
     for _ in range(n_steps):
@@ -118,4 +127,4 @@ def run_hmc(
             *_SCALE_BOUNDS)
         n_acc = n_acc + okf
     rate = n_acc / max(n_steps, 1)
-    return p, ln, lml, rate, scale
+    return p, ln, lml, rate, scale, (U0, g_p, g_n)

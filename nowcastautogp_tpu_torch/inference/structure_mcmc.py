@@ -19,15 +19,13 @@ from ..models.structures import (
     prior_arrays, propose_birth_death, propose_leaf_swap,
     propose_subtree_replace,
 )
+# mixture weights of the three involutive moves, shared with the device
+# proposals: subtree regeneration, leaf-type swap, birth/death
+from ..models.structures_device import MOVE_PROBS
 from ..ops.lml import gp_lml_batched
 from .hmc import run_hmc
 
 __all__ = ["MOVE_PROBS", "propose_batch", "mcmc_structure_sweep"]
-
-# Mixture weights of the three involutive moves: subtree regeneration,
-# leaf-type swap, birth/death (the JAX package's
-# ``models/structures_device.py::MOVE_PROBS``).
-MOVE_PROBS = (0.4, 0.3, 0.3)
 
 
 def propose_batch(rng: np.random.Generator, node_types: np.ndarray,
@@ -83,7 +81,7 @@ def _structure_move_body(
                          for new, old in zip(pri_prop, pri_old))
     lml = torch.where(accept, lml_prop, lml_old)
     if n_hmc > 0:
-        params, log_noise, lml, _, eps_scale = run_hmc(
+        params, log_noise, lml, _, eps_scale, _ = run_hmc(
             types, params, log_noise, mu, sigma, active, x, y, mask, gen,
             n_steps=n_hmc, n_leapfrog=n_leapfrog, step_size=step_size,
             step_jitter=step_jitter, jitter=jitter, noise_mu=noise_mu,

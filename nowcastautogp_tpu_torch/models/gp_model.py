@@ -30,6 +30,7 @@ import hashlib
 import numpy as np
 import torch
 
+from ..inference.device_smc import rejuvenation_sweep
 from ..inference.hmc import run_hmc
 from ..inference.resample import ess, gather_particles, resample_indices
 from ..inference.structure_mcmc import mcmc_structure_sweep
@@ -38,6 +39,7 @@ from ..utils.dates import as_date_array, dates_to_float
 from .config import GPConfig, HMCConfig
 from .posterior import MvNormalMixture
 from .structures import prior_arrays, sample_particle
+from .structures_device import ancestor_table, config_arrays
 
 __all__ = ["GPModel", "num_particles", "normalized_weights", "predict_mvn",
            "add_data", "maybe_resample", "mcmc_structure", "mcmc_parameters"]
@@ -235,12 +237,34 @@ class GPModel:
         return idx
 
     def rejuvenate(self, n_mcmc: int, n_hmc: int,
-                   hmc_config: HMCConfig | None = None):
-        """n_mcmc structure moves (host proposals), each followed by n_hmc
-        HMC trajectories; returns the mean structure acceptance."""
+                   hmc_config: HMCConfig | None = None,
+                   engine: str = "host"):
+        """n_mcmc structure moves, each followed by n_hmc HMC trajectories;
+        returns the mean structure acceptance.  ``engine="host"`` builds the
+        proposals in numpy (one device call per move); ``"device"`` runs
+        the sweep on the device (``inference/device_smc.py``)."""
         hmc_cfg = hmc_config or HMCConfig()
         noise_mu, noise_sigma, infer = self.noise_prior
         x, y, m = self._batched_data(bucket=True)
+        if engine == "device":
+            types, params, log_noise, lml, acc, scale = rejuvenation_sweep(
+                self._types_d(), self._params_d, self._log_noise_d,
+                self._lml_d, x, y, m, self._gen,
+                config_arrays(self.config, self.device),
+                torch.as_tensor(ancestor_table(self.config.max_nodes),
+                                device=self.device),
+                n_mcmc=int(n_mcmc), n_hmc=int(n_hmc),
+                n_leapfrog=hmc_cfg.n_leapfrog, step_size=hmc_cfg.step_size,
+                step_jitter=hmc_cfg.step_size_jitter, jitter=DEFAULT_JITTER,
+                noise_mu=noise_mu, noise_sigma=noise_sigma, infer_noise=infer,
+                eps_scale=self._eps_scale_d,
+            )
+            self._host_types = types.cpu().numpy().astype(np.int32)
+            self._params_d, self._log_noise_d = params, log_noise
+            self._lml_d, self._eps_scale_d = lml, scale
+            return float(acc)
+        if engine != "host":
+            raise ValueError(f"engine={engine!r}; expected 'host' or 'device'")
         (self._host_types, self._params_d, self._log_noise_d, self._lml_d,
          acc, self._eps_scale_d) = mcmc_structure_sweep(
             self.rng, self._gen, self._host_types, self._params_d,
@@ -258,7 +282,7 @@ class GPModel:
         mu, sigma, active = (self._tensor(a) for a in
                              prior_arrays(self._host_types, self.config))
         (self._params_d, self._log_noise_d, self._lml_d, rate,
-         self._eps_scale_d) = run_hmc(
+         self._eps_scale_d, _) = run_hmc(
             self._types_d(), self._params_d, self._log_noise_d,
             mu, sigma, active, x, y, m, self._gen,
             n_steps=int(n_hmc), n_leapfrog=hmc_cfg.n_leapfrog,

@@ -1,32 +1,56 @@
 """Nowcast scenarios and nowcast-conditioned forecasts.
 
-Port of the JAX package's ``nowcast.py`` on its no-refresh shared-date
-branch: every scenario shares the base model's time axis and differs only
-in the nowcast block of the target vector, so the covariance, its Cholesky
-factor and the predictive covariance are computed once per *particle* and
-the S scenario targets ride as extra right-hand sides.  Mixture components
-are drawn from the per-scenario importance weights, which samples the same
-mixture as resample-then-draw.
+Port of the JAX package's ``nowcast.py``.  ``forecast_with_nowcasts``
+conditions the fitted ensemble on each nowcast scenario and forecasts from
+it, by one of three branches, chosen as the reference chooses them:
+
+* scenarios with different date axes: the serial branch, one model copy per
+  scenario (``add_data``, ``maybe_resample``, ``mcmc_structure`` or
+  ``mcmc_parameters``, ``forecast``);
+* shared dates and no particle refresh: the shared-Cholesky branch.  The
+  covariance, its Cholesky factor and the predictive covariance are
+  computed once per *particle* and the S scenario targets ride as extra
+  right-hand sides; mixture components are drawn from the per-scenario
+  importance weights, which samples the same mixture as
+  resample-then-draw;
+* shared dates with a refresh (``n_mcmc``, ``n_hmc``, ``forecast_n_hmc``):
+  the batched branch.  The ensemble is tiled to R = S x P rows with
+  per-row data buffers, and the reweight, the per-scenario ESS resample,
+  the HMC or device-proposal refresh and the draws are batched calls over
+  all rows (in chunks of scenarios, ``_scenario_chunk``).
 
 The output contract is the reference's: a ``(n_dates, n_scenarios *
 draws_per_nowcast)`` matrix with columns grouped by scenario, and the base
 model is never mutated.  Draws are a pure function of (base state, inputs):
-the scenario generator is seeded from a hash of the base model's generator
-states, a call-site salt, ``draw_seed`` and the nowcast data.
+each branch's generators are seeded from a hash of the base model's
+generator states, a call-site salt, ``draw_seed`` and the nowcast data.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import logging
 
 import numpy as np
 import torch
 
-from .models.gp_model import _PAD, GPModel
+from .forecasting import forecast
+from .inference.device_smc import rejuvenation_sweep
+from .inference.hmc import run_hmc
+from .inference.resample import ess, resample_indices
+from .models.config import HMCConfig
+from .models.gp_model import (
+    _PAD, GPModel, _seeded_generator, add_data, maybe_resample,
+    mcmc_parameters, mcmc_structure,
+)
+from .models.structures import prior_arrays
+from .models.structures_device import ancestor_table, config_arrays
 from .ops.cov import cov_fn
+from .ops.forecast_scan import nowcast_forecast_hmc_scan
 from .ops.lml import (
-    DEFAULT_JITTER, LOG_2PI, masked_kernel_matrix, sampling_cholesky,
+    DEFAULT_JITTER, LOG_2PI, gp_lml_batched, gp_predict_batch,
+    masked_kernel_matrix, sampling_cholesky,
 )
 from .ops.megalml import cholesky_nan
 from .tdata import create_transformed_data
@@ -37,9 +61,15 @@ __all__ = ["create_nowcast_data", "forecast_with_nowcasts"]
 
 logger = logging.getLogger("nowcastautogp_tpu_torch")
 
-_NOT_PORTED = (
-    "{} is not ported yet (ROADMAP.md, modules to port: the batched and "
-    "serial nowcast branches)")
+# Scenario chunking of the batched branch.  Each of the S x P rows holds a
+# few (cap, cap) float32 matrices at once on the card: K1's two workspaces,
+# K2's one, the composed core's A, A^-1 and its cotangent above capacity
+# 512.  A row is budgeted at 8 such matrices and a chunk at 32 GiB of the
+# H100's 80 GB.  chip_smoke.py's phase 6 measures the peak where the budget
+# binds (capacity 576, 16 scenarios of 200 rows a chunk): 5.07 matrices a
+# row, 21.5 GB, on an NVIDIA H100 80GB HBM3 at 700 W.
+_ROW_MATRICES = 8
+_CHUNK_BYTES = 32 * 2**30
 
 
 def create_nowcast_data(nowcasts, dates, *, transformation=lambda y: y):
@@ -123,13 +153,11 @@ def forecast_with_nowcasts(
     """Forecast conditioned on each nowcast scenario; concat scenario blocks.
 
     Validation mirrors the reference: non-empty scenarios; ``n_mcmc > 0``
-    requires ``n_hmc > 0``; ``0 <= ess_threshold <= 1``; ``forecast_n_hmc``
-    (if given) must be positive.  Only the no-refresh shared-date branch is
-    ported: scenarios with different date axes, or any particle refresh
-    (``n_mcmc``, ``n_hmc``, ``forecast_n_hmc``), raise
-    ``NotImplementedError`` (``forecast_n_hmc`` runs in ``forecast``, not
-    yet per scenario here).  On that branch ``ess_threshold`` has no effect
-    on the sampled mixture.  The work runs on ``base_model.device``.
+    requires ``n_hmc > 0``; ``0 <= ess_threshold <= 1`` (a fraction of the
+    ensemble); ``forecast_n_hmc`` (if given) must be positive and refreshes
+    the hyperparameters before every draw.  The branch follows the
+    module docstring; on the shared-Cholesky branch ``ess_threshold`` has no
+    effect on the sampled mixture.  The work runs on ``base_model.device``.
     """
     nowcasts = list(nowcasts)
     if len(nowcasts) == 0:
@@ -141,18 +169,74 @@ def forecast_with_nowcasts(
         raise ValueError("ess_threshold must be between 0 and 1")
     if forecast_n_hmc is not None and forecast_n_hmc <= 0:
         raise ValueError("forecast_n_hmc must be > 0 if specified")
+    D = int(forecast_draws_per_nowcast)
+    kw = dict(inv_transformation=inv_transformation, n_mcmc=n_mcmc,
+              n_hmc=n_hmc, ess_threshold=ess_threshold,
+              forecast_n_hmc=forecast_n_hmc, verbose=verbose,
+              draw_seed=draw_seed)
     if not _shared_dates(nowcasts):
-        raise NotImplementedError(
-            _NOT_PORTED.format("scenarios with different date axes"))
-    if n_mcmc > 0 or n_hmc > 0 or forecast_n_hmc is not None:
-        raise NotImplementedError(
-            _NOT_PORTED.format("particle refresh (n_mcmc, n_hmc, "
-                               "forecast_n_hmc)"))
-    return _forecast_with_nowcasts_shared_chol(
-        base_model, nowcasts, forecast_dates, int(forecast_draws_per_nowcast),
-        inv_transformation=inv_transformation, verbose=verbose,
-        draw_seed=draw_seed,
-    )
+        return _forecast_with_nowcasts_serial(
+            base_model, nowcasts, forecast_dates, D, **kw)
+    if n_mcmc == 0 and n_hmc == 0 and forecast_n_hmc is None:
+        return _forecast_with_nowcasts_shared_chol(
+            base_model, nowcasts, forecast_dates, D,
+            inv_transformation=inv_transformation, verbose=verbose,
+            draw_seed=draw_seed,
+        )
+    S = len(nowcasts)
+    chunk = _scenario_chunk(base_model, nowcasts)
+    blocks = []
+    for lo in range(0, S, chunk):
+        blocks.append(_forecast_with_nowcasts_batched(
+            base_model, nowcasts[lo:lo + chunk], forecast_dates, D, **kw))
+        if verbose and chunk < S:
+            logger.info("nowcast chunk %d-%d/%d done", lo,
+                        min(lo + chunk, S), S)
+    return np.concatenate(blocks, axis=1)
+
+
+def _scenario_chunk(base_model, nowcasts) -> int:
+    """Scenarios per batched call: as many as ``_CHUNK_BYTES`` holds at
+    ``_ROW_MATRICES`` (cap, cap) float32 matrices per row.  Unlike the JAX
+    package, the last chunk is not padded to the others' shape: nothing is
+    compiled per shape here."""
+    cap = _scenario_cap(base_model, nowcasts[0].ds)
+    per_scenario = base_model.num_particles * _ROW_MATRICES * cap * cap * 4
+    return int(np.clip(_CHUNK_BYTES // per_scenario, 1, len(nowcasts)))
+
+
+def _forecast_with_nowcasts_serial(
+    base_model, nowcasts, forecast_dates, draws_per_nowcast, *,
+    inv_transformation, n_mcmc, n_hmc, ess_threshold, forecast_n_hmc, verbose,
+    draw_seed=None,
+):
+    """General branch: an independent model copy per scenario.
+
+    Each copy gets fresh generators derived by hashing, not advancing, the
+    base state (the restored state would replay one stream in every copy).
+    """
+    base_dict = base_model.to_dict()
+    blocks = []
+    for i, nc in enumerate(nowcasts):
+        model = GPModel(copy.deepcopy(base_dict))
+        ss_rng, ss_gen = _scenario_seed_seq(
+            base_model, i, [nc], draw_seed).spawn(2)
+        model.rng = np.random.default_rng(ss_rng)
+        model._gen = _seeded_generator(model.device,
+                                       ss_gen.generate_state(1)[0])
+        add_data(model, nc.ds, nc.y)
+        maybe_resample(model, ess_threshold * model.num_particles)
+        if n_mcmc > 0 and n_hmc > 0:
+            mcmc_structure(model, n_mcmc, n_hmc)
+        elif n_mcmc == 0 and n_hmc > 0:
+            mcmc_parameters(model, n_hmc)
+        blocks.append(forecast(
+            model, forecast_dates, draws_per_nowcast,
+            inv_transformation=inv_transformation,
+            forecast_n_hmc=forecast_n_hmc))
+        if verbose:
+            logger.info("Nowcast scenario %d/%d done", i + 1, len(nowcasts))
+    return np.concatenate(blocks, axis=1)
 
 
 def _shared_chol_moments(types, params, log_noise, x, y_scen, mask_old,
@@ -225,13 +309,20 @@ def _shared_chol_sample(log_w, mu, chol_pred, gen, n_draws):
     return samples.T
 
 
+def _scenario_cap(base_model, nc_ds) -> int:
+    """Capacity of the scenario rows: the base buffer's, or the next
+    ``_PAD`` multiple that holds the ingested data and the nowcast block."""
+    n_new = base_model.n_ingested + len(nc_ds)
+    return max(base_model._cap, int(np.ceil(n_new / _PAD)) * _PAD)
+
+
 def _scenario_buffers(base_model, nowcasts):
     """Shared time axis, per-scenario targets and old/new masks (numpy)."""
     S = len(nowcasts)
     n0 = base_model.n_ingested
     nc_ds = nowcasts[0].ds
     n_new = n0 + len(nc_ds)
-    cap = max(base_model._cap, int(np.ceil(n_new / _PAD)) * _PAD)
+    cap = _scenario_cap(base_model, nc_ds)
     x_row = np.zeros(cap, dtype=np.float32)
     x_row[:n0] = base_model._x_d[:n0].cpu().numpy()
     x_row[n0:n_new] = base_model._normalize_dates(nc_ds)
@@ -271,4 +362,145 @@ def _forecast_with_nowcasts_shared_chol(
         logger.info(
             "Shared-Cholesky nowcast forecast: %d scenarios x %d draws",
             len(nowcasts), draws_per_nowcast)
+    return apply_elementwise(inv_transformation, out)
+
+
+def _reweight_delta(lml_old, lml_new):
+    """Per-row add_data weight update (float64 numpy): the LML gain, or
+    ``-1e10`` where either LML is at the rejection sentinel.  A broken OLD
+    value would otherwise give delta ~ +1e10 and hand that particle all the
+    weight."""
+    return np.where((lml_old <= -1e9) | (lml_new <= -1e9), -1e10,
+                    lml_new - lml_old)
+
+
+def _resample_rows(rng, log_w, S, P, ess_threshold):
+    """Per-scenario ESS resampling of the flattened rows (host index math).
+
+    Scenario s's P rows are resampled from their own weights when their
+    ESS is below ``ess_threshold * P``, and their weights reset to 0.
+    Returns (flat row indices (R,), log_w, whether any scenario resampled);
+    ``log_w`` is updated in place.
+    """
+    flat_idx = np.arange(S * P, dtype=np.int64)
+    resampled = False
+    for s in range(S):
+        sl = slice(s * P, (s + 1) * P)
+        if ess(log_w[sl]) < ess_threshold * P:
+            flat_idx[sl] = resample_indices(rng, log_w[sl]) + s * P
+            log_w[sl] = 0.0
+            resampled = True
+    return flat_idx, log_w, resampled
+
+
+def _forecast_with_nowcasts_batched(
+    base_model, nowcasts, forecast_dates, draws_per_nowcast, *,
+    inv_transformation, n_mcmc, n_hmc, ess_threshold, forecast_n_hmc, verbose,
+    draw_seed=None,
+):
+    """Batched branch: the flattened scenario x particle rows on the device.
+
+    Equal in distribution to the serial branch (each scenario conditions an
+    independent copy of the ensemble), but every numerical step is one call
+    over all S x P rows: the old and new LMLs of the reweight, one gather
+    for the resample, the refresh (``run_hmc`` for ``n_hmc`` alone, the
+    device-proposal ``rejuvenation_sweep`` for ``n_mcmc > 0``) and the
+    draws (``nowcast_forecast_hmc_scan`` with ``forecast_n_hmc``).
+    """
+    S = len(nowcasts)
+    P = base_model.num_particles
+    R = S * P
+    D = int(draws_per_nowcast)
+    dev = base_model.device
+    hmc_cfg = HMCConfig()
+    noise_mu, noise_sigma, infer = base_model.noise_prior
+    t = base_model._tensor
+    x_row, y_rows, mask_old, mask_new = _scenario_buffers(base_model, nowcasts)
+    cap = x_row.shape[0]
+    x_b = t(x_row).expand(R, cap)
+    y_b = t(np.repeat(y_rows, P, axis=0))
+    m_old = t(mask_old).expand(R, cap)
+    m_new = t(mask_new).expand(R, cap)
+
+    # the particle state tiled across scenarios: row s * P + p
+    host_types = np.tile(base_model._host_types, (S, 1))
+    types_d = torch.as_tensor(host_types, device=dev)
+    params = base_model._params_d.repeat(S, 1, 1)
+    log_noise = base_model._log_noise_d.repeat(S)
+    eps_scale = base_model._eps_scale_d.repeat(S)
+
+    # the cached LML may be on a different (shuffled) buffer: both sides of
+    # the add_data delta are evaluated on this one
+    with torch.no_grad():
+        lml_old = gp_lml_batched(types_d, params, log_noise, x_b, y_b, m_old,
+                                 DEFAULT_JITTER)
+        lml = gp_lml_batched(types_d, params, log_noise, x_b, y_b, m_new,
+                             DEFAULT_JITTER)
+    log_w = np.tile(base_model.log_weight, S) + _reweight_delta(
+        lml_old.cpu().numpy().astype(np.float64),
+        lml.cpu().numpy().astype(np.float64))
+
+    if ess_threshold > 0:
+        rng = np.random.default_rng(
+            _scenario_seed_seq(base_model, -2, nowcasts, draw_seed))
+        flat_idx, log_w, resampled = _resample_rows(rng, log_w, S, P,
+                                                    ess_threshold)
+        if resampled:
+            idx = torch.as_tensor(flat_idx, device=dev)
+            params, log_noise, lml, eps_scale, types_d = (
+                a[idx] for a in (params, log_noise, lml, eps_scale, types_d))
+            host_types = host_types[flat_idx]
+
+    gen = _seeded_generator(dev, _scenario_seed_seq(
+        base_model, -3, nowcasts, draw_seed).generate_state(1)[0])
+    hmc_kw = dict(n_leapfrog=hmc_cfg.n_leapfrog, step_size=hmc_cfg.step_size,
+                  step_jitter=hmc_cfg.step_size_jitter, jitter=DEFAULT_JITTER,
+                  noise_mu=noise_mu, noise_sigma=noise_sigma,
+                  infer_noise=infer)
+    if n_mcmc > 0:
+        types_d, params, log_noise, lml, _, eps_scale = rejuvenation_sweep(
+            types_d, params, log_noise, lml, x_b, y_b, m_new, gen,
+            config_arrays(base_model.config, dev),
+            torch.as_tensor(ancestor_table(base_model.config.max_nodes),
+                            device=dev),
+            n_mcmc=int(n_mcmc), n_hmc=int(n_hmc), eps_scale=eps_scale,
+            **hmc_kw)
+        host_types = types_d.cpu().numpy()
+    elif n_hmc > 0:
+        mu, sg, act = (t(a) for a in prior_arrays(host_types,
+                                                  base_model.config))
+        params, log_noise, lml, _, eps_scale, _ = run_hmc(
+            types_d, params, log_noise, mu, sg, act, x_b, y_b, m_new, gen,
+            n_steps=int(n_hmc), eps_scale=eps_scale, **hmc_kw)
+
+    xs = t(base_model._normalize_dates(list(forecast_dates)))
+    logw_d = t(log_w.reshape(S, P) - log_w.reshape(S, P).max(1, keepdims=True))
+    if forecast_n_hmc is None:
+        with torch.no_grad():
+            comps = torch.multinomial(torch.softmax(logw_d, -1), D,
+                                      replacement=True, generator=gen)
+            rows = (comps + torch.arange(S, device=dev)[:, None] * P
+                    ).reshape(-1)                                # (S * D,)
+            # each row's predictive depends on that row alone, so only the
+            # drawn rows' are built
+            drawn, inv = torch.unique(rows, return_inverse=True)
+            mu, cov = gp_predict_batch(
+                types_d[drawn], params[drawn], log_noise[drawn], x_b[drawn],
+                y_b[drawn], m_new[drawn], xs, DEFAULT_JITTER, True)
+            chol = sampling_cholesky(cov)
+            eps = torch.randn(S * D, xs.shape[0], generator=gen, device=dev,
+                              dtype=mu.dtype)
+            samples = (mu[inv] + torch.einsum("rij,rj->ri", chol[inv],
+                                               eps)).T
+    else:
+        mu_pr, sg_pr, act_pr = (t(a) for a in prior_arrays(
+            host_types, base_model.config))
+        samples, *_ = nowcast_forecast_hmc_scan(
+            types_d, params, log_noise, mu_pr, sg_pr, act_pr, x_b, y_b,
+            m_new, xs, logw_d, gen, eps_scale, n_scenarios=S, n_draws=D,
+            n_hmc=int(forecast_n_hmc), **hmc_kw)
+    out = samples.cpu().numpy().astype(np.float64)
+    out = base_model._y_mean + base_model._y_std * out
+    if verbose:
+        logger.info("Batched nowcast forecast: %d scenarios x %d draws", S, D)
     return apply_elementwise(inv_transformation, out)

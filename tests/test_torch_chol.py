@@ -23,6 +23,7 @@ from nowcastautogp_tpu.models.structures import sample_particle
 from nowcastautogp_tpu.ops import lml as jlml
 from nowcastautogp_tpu_torch.models import structures as st
 from nowcastautogp_tpu_torch.ops import chol, cov, lml
+from _session_once import once_per_session
 
 torch.set_num_threads(1)
 
@@ -62,10 +63,16 @@ def _inputs(n, seed):
     }
 
 
-@pytest.fixture(scope="module")
-def cases():
+@pytest.fixture(scope="session")
+def cases(tmp_path_factory):
     """Per n: inputs, the masked A and ym, JAX's (L, alpha), K^-1, and
-    ``gp_lml_batched(backend="jnp")`` with its gradients."""
+    ``gp_lml_batched(backend="jnp")`` with its gradients; built once per
+    session (``_session_once``)."""
+    return once_per_session(tmp_path_factory, "torch_chol_cases",
+                            _cases)
+
+
+def _cases():
 
     @jax.jit
     def factor(A, ym):

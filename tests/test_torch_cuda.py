@@ -467,3 +467,122 @@ def test_pallas_backends_run_k7_and_k6(dev, pallas_backends):
                                atol=GRAD_ATOL)
     torch.testing.assert_close(ln.grad.cpu(), ln_ref.grad, rtol=GRAD_RTOL,
                                atol=GRAD_ATOL)
+
+
+def _weekly_model(device, P=8, n_train=24):
+    """A depth-3 ensemble reweighted on 24 weeks of a log series, on
+    ``device`` (the same seed on both devices gives the same particles)."""
+    import datetime as dt
+
+    from nowcastautogp_tpu_torch.models.config import GPConfig
+    from nowcastautogp_tpu_torch.models.gp_model import GPModel
+
+    n = n_train + 2 + 3
+    dates = [dt.date(2022, 1, 3) + dt.timedelta(weeks=i) for i in range(n)]
+    t = np.arange(n)
+    y = np.log(800 * np.exp(0.6 * np.sin(2 * np.pi * t / 26 + 1.0)
+                            + 0.12 * np.random.default_rng(0)
+                            .standard_normal(n)))
+    model = GPModel(dates[:n_train], y[:n_train], n_particles=P,
+                    config=GPConfig(max_depth=3), seed=5, device=device)
+    model.reweight_to(n_train)
+    draws = y[n_train:n_train + 2] + np.random.default_rng(1).normal(
+        0.0, 0.05, (3, 2))
+    return model, dates, draws
+
+
+def _cpu_copy(model):
+    """The model's state on the CPU (its torch generator restarted there:
+    the card's generator state does not load into a CPU generator)."""
+    from nowcastautogp_tpu_torch.models.gp_model import GPModel
+
+    d = model.to_dict()
+    d["device"] = "cpu"
+    d["generator_state"] = torch.Generator().get_state().numpy()
+    return GPModel(d)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_hmc=1, ess_threshold=0.5), dict(n_mcmc=1, n_hmc=1),
+    dict(forecast_n_hmc=1), dict(n_hmc=1, serial=True)],
+    ids=["n_hmc", "n_mcmc", "forecast_n_hmc", "serial"])
+def test_nowcast_branches_on_the_card(dev, kw):
+    """Each refresh branch runs on the card through K1/K2, gives finite
+    draws of the contract's shape, repeats itself and leaves the base model
+    unchanged; the batched branch's reweight LMLs equal the CPU plain
+    version's on the same state."""
+    import nowcastautogp_tpu_torch as ngp
+    from nowcastautogp_tpu_torch import nowcast
+
+    kw = dict(kw)
+    serial = kw.pop("serial", False)
+    model, dates, draws = _weekly_model(dev)
+    ncs = ngp.create_nowcast_data(list(draws), dates[24:26])
+    if serial:
+        ncs = ncs[:2] + ngp.create_nowcast_data([draws[2][:1]], dates[24:25])
+    f_dates = dates[26:]
+    before = model.to_dict()
+    recorded = []
+    guard = nowcast._reweight_delta
+
+    def recording(old, new):
+        recorded.append((old, new))
+        return guard(old, new)
+
+    nowcast._reweight_delta = recording
+    try:
+        megalml.reset_launch_counts()
+        out = ngp.forecast_with_nowcasts(model, ncs, f_dates, 4, **kw)
+        assert megalml.K1_LAUNCHES > 0 and megalml.K2_LAUNCHES > 0
+        again = ngp.forecast_with_nowcasts(model, ncs, f_dates, 4, **kw)
+        cpu_model = _cpu_copy(model)
+        ngp.forecast_with_nowcasts(cpu_model, ncs, f_dates, 4, **kw)
+    finally:
+        nowcast._reweight_delta = guard
+    assert out.shape == (3, 12) and np.all(np.isfinite(out))
+    np.testing.assert_array_equal(out, again)
+    after = model.to_dict()
+    for key in ("node_types", "params", "log_noise", "lml", "log_weight",
+                "hmc_eps_scale", "generator_state"):
+        assert np.array_equal(before[key], after[key]), key
+    if not serial:
+        (old_k, new_k), _, (old_p, new_p) = recorded
+        np.testing.assert_allclose(old_k, old_p, rtol=VAL_RTOL, atol=VAL_ATOL)
+        np.testing.assert_allclose(new_k, new_p, rtol=VAL_RTOL, atol=VAL_ATOL)
+
+
+def test_device_engine_on_the_card(dev):
+    """Device proposals on CUDA tensors are valid trees, and a tiny fit
+    and a rejuvenation sweep under ``engine="device"`` run through K1/K2
+    with finite weights."""
+    import nowcastautogp_tpu_torch as ngp
+    from nowcastautogp_tpu_torch.models import structures_device as sd
+
+    model, dates, _ = _weekly_model(dev, P=16)
+    cfg = sd.config_arrays(model.config, dev)
+    anc = torch.as_tensor(sd.ancestor_table(model.config.max_nodes),
+                          device=dev)
+    gen = torch.Generator(dev)
+    gen.manual_seed(3)
+    types, params = model._types_d(), model._params_d
+    for _ in range(20):
+        types, params, log_h = sd.device_propose_mixed(types, params, gen,
+                                                       cfg, anc)
+        assert types.device.type == dev.type and types.dtype == torch.int32
+        for t in types.cpu().numpy():
+            assert t[0] != st.EMPTY
+            for i in range(3):
+                if t[i] in (st.PLUS, st.TIMES, st.CP):
+                    assert t[2 * i + 1] != st.EMPTY
+                    assert t[2 * i + 2] != st.EMPTY
+    megalml.reset_launch_counts()
+    acc = model.rejuvenate(2, 1, engine="device")
+    assert 0.0 <= acc <= 1.0 and megalml.K1_LAUNCHES == 1 + 2 * (1 + 5)
+    data = ngp.create_transformed_data(dates[:24], np.exp(np.arange(24) / 10))
+    fitted = ngp.make_and_fit_model(
+        data, n_particles=8, smc_data_proportion=0.25, n_mcmc=2, n_hmc=1,
+        seed=4, config=ngp.GPConfig(max_depth=3), engine="device",
+        device=dev)
+    assert fitted.n_ingested == 24
+    assert np.all(np.isfinite(fitted.log_weight))
+    assert torch.isfinite(fitted._lml_d).all()

@@ -38,6 +38,7 @@ import datetime as dt
 import numpy as np
 import pytest
 import torch
+from _session_once import once_per_session
 
 import nowcastautogp_tpu as jngp
 import nowcastautogp_tpu_torch as ngp
@@ -79,23 +80,54 @@ def _accepted(scale_after, scale_before, n_steps):
             + hmc._TARGET_ACCEPT * n_steps)
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """The JAX state, both forecasts (log scale), and both models' states
-    before and after."""
+def _jax_state():
     dates, obs = _series(N_TRAIN + HORIZON)
     jm = jngp.GPModel(dates[:N_TRAIN], np.log(obs[:N_TRAIN]), n_particles=P,
                       config=jngp.GPConfig(max_depth=3), seed=5)
     jm.reweight_to(N_TRAIN)
-    state = jm.to_dict()
-    f_dates = dates[N_TRAIN:]
+    return jm.to_dict(), dates[N_TRAIN:]
+
+
+@pytest.fixture(scope="session")
+def state(tmp_path_factory):
+    """The JAX state both packages start from, and the forecast dates."""
+    return once_per_session(tmp_path_factory,
+                            "forecast_hmc_state", _jax_state)
+
+
+def _jax_runs(state, f_dates):
     jm = jngp.GPModel(state)
     ref = jngp.forecast(jm, f_dates, DRAWS, forecast_n_hmc=1)
+    return dict(ref=ref, jax_after=jm.to_dict())
+
+
+def _port_runs(state, f_dates):
     pm = GPModel.from_jax_state(state, device="cpu")
     before = pm.to_dict()
     got = _pallas_forecast(pm, f_dates, DRAWS, 1)
-    return dict(ref=ref, got=got, before=before, pm=pm, jax_after=jm.to_dict(),
-                state=state, f_dates=f_dates)
+    return dict(got=got, before=before, after=pm.to_dict())
+
+
+@pytest.fixture(scope="session")
+def jax_runs(tmp_path_factory, state):
+    """JAX's forecast (log scale) and its model's state after."""
+    return once_per_session(tmp_path_factory,
+                            "forecast_hmc_jax", lambda: _jax_runs(*state))
+
+
+@pytest.fixture(scope="session")
+def port_runs(tmp_path_factory, state):
+    """The port's forecast (log scale) and its model's state before and
+    after."""
+    return once_per_session(tmp_path_factory,
+                            "forecast_hmc_port", lambda: _port_runs(*state))
+
+
+@pytest.fixture
+def runs(jax_runs, port_runs):
+    """Both forecasts and states: each half is built once per session,
+    the two halves possibly by two workers at once."""
+    return {**jax_runs, **port_runs}
 
 
 def test_shapes_and_values(runs):
@@ -114,11 +146,11 @@ def test_draws_agree_with_jax_in_distribution(runs):
     assert np.all(np.abs(q_got - q_ref) <= tol), (q_got, q_ref, tol)
 
 
-def test_the_model_is_mutated_between_draws(runs):
+def test_the_model_is_mutated_between_draws(port_runs):
     """Hyperparameters moved and every particle's step scale took exactly
     one adaptation per draw, as the reference mutates the model; weights
     and the numpy generator are untouched."""
-    before, after = runs["before"], runs["pm"].to_dict()
+    before, after = port_runs["before"], port_runs["after"]
     assert np.any(after["params"] != before["params"])
     assert np.any(after["log_noise"] != before["log_noise"])
     s0, s1 = before["hmc_eps_scale"], after["hmc_eps_scale"]
@@ -135,11 +167,11 @@ def test_the_model_is_mutated_between_draws(runs):
 def test_acceptance_agrees_with_jax(runs):
     s0 = runs["before"]["hmc_eps_scale"]
     rates = [_accepted(after["hmc_eps_scale"], s0, DRAWS).mean() / DRAWS
-             for after in (runs["pm"].to_dict(), runs["jax_after"])]
+             for after in (runs["after"], runs["jax_after"])]
     assert abs(rates[0] - rates[1]) <= ACCEPT_TOL, rates
 
 
-def test_each_draw_is_sampled_from_its_own_refresh(runs, monkeypatch):
+def test_each_draw_is_sampled_from_its_own_refresh(state, monkeypatch):
     """Three draws with two HMC steps each: the refreshes chain, each
     draw's predictive is built from its refreshed state and equals JAX's
     there (JAX's own data, test points, jitter and noise), sampling factors
@@ -167,12 +199,13 @@ def test_each_draw_is_sampled_from_its_own_refresh(runs, monkeypatch):
     monkeypatch.setattr(forecast_scan, "run_hmc", recording_hmc)
     monkeypatch.setattr(forecast_scan, "gp_predict_batch", recording_predict)
     monkeypatch.setattr(forecast_scan, "sampling_cholesky", recording_factor)
-    jm = jngp.GPModel(runs["state"])
+    jstate, f_dates = state
+    jm = jngp.GPModel(jstate)
     jdata = (jm._host_types, *jm._batched_data())
-    jxs = np.asarray(jm._normalize_dates(runs["f_dates"]), np.float32)
-    pm = GPModel.from_jax_state(runs["state"], device="cpu")
+    jxs = np.asarray(jm._normalize_dates(f_dates), np.float32)
+    pm = GPModel.from_jax_state(jstate, device="cpu")
     state = pm._params_d, pm._log_noise_d, pm._eps_scale_d
-    _pallas_forecast(pm, runs["f_dates"], draws, n_hmc)
+    _pallas_forecast(pm, f_dates, draws, n_hmc)
     assert len(refreshes) == len(predictives) == len(factored) == draws
     for (p, ln, scale, n_steps, out), (args, (mu, covm)), f in zip(
             refreshes, predictives, factored):
@@ -192,8 +225,8 @@ def test_each_draw_is_sampled_from_its_own_refresh(runs, monkeypatch):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_forecast_n_hmc_must_be_positive(runs):
-    pm = runs["pm"]
+def test_forecast_n_hmc_must_be_positive(state):
+    pm = GPModel.from_jax_state(state[0], device="cpu")
     with pytest.raises(ValueError, match="forecast_n_hmc"):
         ngp.forecast(pm, _series(N_TRAIN + 1)[0][N_TRAIN:], 2,
                      forecast_n_hmc=0)

@@ -28,10 +28,11 @@ from nowcastautogp_tpu.inference import schedule as jschedule
 from nowcastautogp_tpu.inference import structure_mcmc as jmcmc
 from nowcastautogp_tpu.models import config as jconfig
 from nowcastautogp_tpu.eval import crps as jcrps
+from nowcastautogp_tpu.eval import families as jfamilies
 from nowcastautogp_tpu.models import structures as jstructures
 from nowcastautogp_tpu.utils import dates as jdates
 from nowcastautogp_tpu_torch import fitting, tdata, transforms
-from nowcastautogp_tpu_torch.eval import crps
+from nowcastautogp_tpu_torch.eval import crps, families
 from nowcastautogp_tpu_torch.inference import resample, schedule
 from nowcastautogp_tpu_torch.inference import structure_mcmc
 from nowcastautogp_tpu_torch.models import config, structures
@@ -176,9 +177,17 @@ def test_crps_and_quantiles_match_jax():
         jcrps.quantile_matrix(fc, qs), rtol=1e-5)
 
 
+@pytest.mark.parametrize("family", ["nhsn_like", "seir_wave", "outbreak_cp"])
+def test_series_families_bitwise(family):
+    for seed in (2, 3, 4):
+        _assert_same(families.FAMILIES[family](150, seed),
+                     jfamilies.FAMILIES[family](150, seed))
+
+
 def test_import_loads_no_jax():
     """A fresh interpreter importing the port loads neither jax nor the JAX
-    package, and no module of the port names jax in an import."""
+    package, and no module of the port (nor the jax-free scripts
+    ``chip_smoke.py`` and ``bench_torch.py``) names jax in an import."""
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
@@ -191,7 +200,9 @@ def test_import_loads_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=PKG.parent, timeout=120)
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|nowcastautogp_tpu)\b")
-    for path in PKG.rglob("*.py"):
+    scripts = [PKG.parent / name for name in ("chip_smoke.py",
+                                              "bench_torch.py")]
+    for path in [*PKG.rglob("*.py"), *scripts]:
         for line in path.read_text().splitlines():
             assert not banned.match(line), (path, line)
 

@@ -22,6 +22,7 @@ from nowcastautogp_tpu.ops import kernels as jkernels
 from nowcastautogp_tpu.ops import lml as jlml
 from nowcastautogp_tpu_torch.models.structures import CONST, PLUS, SE
 from nowcastautogp_tpu_torch.ops import kernels, lml, megalml
+from _session_once import once_per_session
 
 torch.set_num_threads(1)
 
@@ -75,8 +76,14 @@ def data():
     return _inputs()
 
 
-@pytest.fixture(scope="module")
-def jax_ref(data):
+@pytest.fixture(scope="session")
+def jax_ref(tmp_path_factory):
+    """The JAX references, built once per session (``_session_once``)."""
+    return once_per_session(tmp_path_factory, "torch_lml_jax",
+                            lambda: _jax_ref(_inputs()))
+
+
+def _jax_ref(data):
     d = {k: jnp.asarray(v) for k, v in data.items()}
     x1 = d["x"][0]
 

@@ -23,6 +23,7 @@ from nowcastautogp_tpu_torch import nowcast
 from nowcastautogp_tpu_torch.inference.hmc import run_hmc
 from nowcastautogp_tpu_torch.models.gp_model import GPModel
 from nowcastautogp_tpu_torch.models.structures import prior_arrays
+from nowcastautogp_tpu_torch.ops.lml import lml_core
 
 torch.set_num_threads(1)
 
@@ -251,7 +252,7 @@ def test_hmc_prior_invariance_with_empty_mask():
     mu, sg, act = (pm._tensor(a) for a in prior_arrays(pm._host_types, cfg))
     noise_mu, noise_sigma, infer = pm.noise_prior
     p0 = pm._params_d.clone()
-    p, ln, lml, rate, _ = run_hmc(
+    p, ln, lml, rate, _, _ = run_hmc(
         pm._types_d(), pm._params_d, pm._log_noise_d, mu, sg, act, x, y, m,
         pm._gen, n_steps=8, n_leapfrog=5, step_size=0.8, step_jitter=0.5,
         jitter=1e-5, noise_mu=noise_mu, noise_sigma=noise_sigma,
@@ -269,16 +270,12 @@ def test_hmc_prior_invariance_with_empty_mask():
 
 
 def test_unported_paths_raise():
+    """What the port still lacks raises and names ROADMAP.md: capacities
+    beyond 2048."""
     dates, y = _series()
     pm = GPModel(dates[:N_TRAIN], y[:N_TRAIN], n_particles=2,
                  config=ngp.GPConfig(max_depth=2), seed=1, device="cpu")
+    x, ym, mask = (torch.zeros(2, 2080) for _ in range(3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ngp.fit_smc(pm, schedule=[N_TRAIN], n_mcmc=1, n_hmc=1,
-                    engine="device")
-    nc_dates, draws, f_dates = _nowcasts(S=2)
-    ncs = ngp.create_nowcast_data(list(draws), nc_dates)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ngp.forecast_with_nowcasts(pm, ncs, f_dates, 2, n_hmc=1)
-    other = ngp.create_nowcast_data([draws[0]], dates[:2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ngp.forecast_with_nowcasts(pm, ncs[:1] + other, f_dates, 2)
+        lml_core(pm._types_d(), pm._params_d, torch.ones(2, 2080), mask, x,
+                 ym)
