@@ -55,7 +55,20 @@ Phases (any failure exits nonzero before the final line):
    refresh's S x P rows; last the batched branch on phase 4's daily model
    at capacity 576 and S = 20, where the scenario chunk binds (16 of 20
    scenarios a chunk), with its peak device memory held under the chunk
-   budget.
+   budget;
+7. panel and workflow: ``tools/panel_bench.py``'s workload through the
+   port (``bench_torch.panel_workload``) -- ``fit_panel(engine="device")``
+   of 20 series x 150 weeks x 24 particles (480 rows; 14 x 5 x 5 moves at
+   proportion 0.1), K1/K2 asserted at the counts the schedule implies,
+   then ``forecast_panel`` of 8 weeks x 500 draws (K4 once), each
+   series' log-CRPS under that tool's gate of 0.2; ``run_acceptance`` at
+   ``examples/acceptance.py``'s default budget (harsh 120-week vintage,
+   4 report dates, the panel fit; five finite CRPS and WIS scores, the
+   ordering printed, not gated); on phase 3's model ``decompose`` (the
+   components sum to the noise-free predictive mean within
+   ``DECOMPOSE_TOL``), a ``save_model`` -> ``load_model`` round trip
+   (the same particle tensors) and ``device_trace`` around one
+   ``predict_mvn`` (the trace names K4's ``cov_fwd_kernel``).
 
 Phase 2 also holds K6a (L, alpha), K6b (L^-1) and the core built on them
 (value and gradients) at P = 200 and n in {32, 64, 96, 128, 160, 576}
@@ -72,8 +85,8 @@ its plain version and, for K6a/K6b, the library call.  Phases 4 and 5 log
 the fitted ensembles' heap classes.
 
 Launch counts of every kernel are set to 0 just before phases 3, 4 and 5
-(and before phase 5's forecast and each part of phase 6) and read just
-after each.  Prints
+(and before phase 5's forecast, each part of phase 6 and each part of
+phase 7) and read just after each.  Prints
 per-phase seconds, a JSON line of results, the ``kernels`` line, the
 ``nvidia-smi`` name/power line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -1499,6 +1512,201 @@ def nowcast_refresh(wk_ctx, dy_ctx, seed=2, n_particles=200, n_train=150,
     return out
 
 
+# ------------------------------------------------------------------ phase 7
+
+# decompose: the component means of a particle sum to its noise-free
+# predictive mean (transformed scale) within this share of the series'
+# standard deviation.  Both sides are float32 solves of the same A from two
+# covariance routes (the interpreter; K4), so they differ by the rounding
+# of A times its condition number.
+DECOMPOSE_TOL = 1e-2
+
+
+def _panel(ngp, draws=500):
+    """The panel of ``tools/panel_bench.py`` through ``fit_panel`` and
+    ``forecast_panel`` (``bench_torch.run_panel``'s workload), with the
+    launch counts the schedule implies asserted."""
+    import bench_torch
+
+    dates, datasets, invs, truths = bench_torch.panel_workload()
+    kw = bench_torch.panel_fit_kwargs()
+    f_dates = dates[len(datasets[0].y):]
+    S, P = len(datasets), kw["n_particles"]
+    n_steps = len(ngp.linear_schedule(len(datasets[0].y),
+                                      kw["smc_data_proportion"]))
+    _reset_counters()
+    _sync()
+    t0 = time.time()
+    models = ngp.fit_panel(datasets, seed=1, engine="device", device=DEVICE,
+                           **kw)
+    _sync()
+    fit_s = time.time() - t0
+    fit_launches = _counters()
+    # per schedule step one reweight (K2) and one rejuvenation sweep: one
+    # gradient call to seed it, then per move one for the proposal and one
+    # per leapfrog of each HMC trajectory (K1), all over S x P rows
+    n_leap = kw["hmc_config"].n_leapfrog
+    want = (n_steps * (1 + kw["n_mcmc"] * (1 + kw["n_hmc"] * n_leap)),
+            n_steps)
+    log(f"panel: K1 = steps x (1 + n_mcmc x (1 + n_hmc x n_leapfrog)) = "
+        f"{n_steps} x (1 + {kw['n_mcmc']} x (1 + {kw['n_hmc']} x {n_leap})) "
+        f"= {want[0]}; K2 = steps = {want[1]}; rows {S} x {P} = {S * P}")
+    check((fit_launches["K1"], fit_launches["K2"]) == want,
+          f"panel fit K1/K2 launches {fit_launches['K1']}/"
+          f"{fit_launches['K2']}, expected {want[0]}/{want[1]}")
+    _reset_counters()
+    t0 = time.time()
+    fcs = ngp.forecast_panel(models, f_dates, draws,
+                             inv_transformations=invs, seed=2)
+    _sync()
+    forecast_s = time.time() - t0
+    fc_launches = _counters()
+    # one predictive build over the S x P rows: K(x, x) from one K4 launch
+    check(fc_launches["K4"] == 1 and fc_launches["K1"] == 0
+          and fc_launches["K2"] == 0,
+          f"forecast_panel launches {fc_launches}, expected K4 once")
+    for fc in fcs:
+        check(fc.shape == (len(f_dates), draws)
+              and bool(np.all(np.isfinite(fc)) and np.all(fc >= 0)),
+              "forecast_panel: a series has a bad forecast")
+    crps, cover = bench_torch.score_series(fcs, truths, DEVICE)
+    worst = int(np.argmax(crps))
+    check(max(crps) <= bench_torch.PANEL_GATE_MAX_LOG_CRPS,
+          f"panel: series {worst} log-CRPS {crps[worst]:.4f} > "
+          f"{bench_torch.PANEL_GATE_MAX_LOG_CRPS}")
+    log(f"panel: fit {fit_s:.3f} s, forecast {forecast_s:.3f} s, log-CRPS "
+        f"median {np.median(crps):.5f}, max {max(crps):.5f}")
+    launches = {k: fit_launches[k] + fc_launches[k] for k in fit_launches}
+    return {"series": S, "rows": S * P, "schedule_steps": n_steps,
+            "fit_s": fit_s, "forecast_s": forecast_s,
+            "log_crps_per_series": crps,
+            "log_crps_median": float(np.median(crps)),
+            "coverage90_mean": float(np.mean(cover)),
+            "fit_launches": fit_launches, "forecast_launches": fc_launches,
+            "launches": launches}
+
+
+def _acceptance(ngp):
+    """``run_acceptance`` at ``examples/acceptance.py``'s default budget
+    (``bench_torch.acceptance_budget``) with the panel fit."""
+    import bench_torch
+    from nowcastautogp_tpu_torch.eval.acceptance import APPROACHES
+
+    vintage, report_dates, kw = bench_torch.acceptance_budget(full=False)
+    _reset_counters()
+    _sync()
+    t0 = time.time()
+    res = ngp.run_acceptance(vintage, report_dates=report_dates,
+                             device=DEVICE, **kw)
+    _sync()
+    seconds = time.time() - t0
+    launches = _counters()
+    check(set(res) == {"scores", "ratios", "per_report", "scores_wis",
+                       "ratios_wis", "n_report_dates"},
+          f"acceptance: result keys {sorted(res)}")
+    check(res["n_report_dates"] == len(report_dates) == 4,
+          f"acceptance: {res['n_report_dates']} report dates")
+    for key in ("scores", "scores_wis"):
+        check(tuple(res[key]) == APPROACHES
+              and all(np.isfinite(v) and v > 0 for v in res[key].values()),
+              f"acceptance: {key} {res[key]}")
+    for k in ("K1", "K2", "K4"):
+        check(launches[k] > 0, f"acceptance: {k} was not launched")
+    log(f"acceptance: {seconds:.3f} s; scores {json.dumps(res['scores'])}; "
+        f"ratios {json.dumps(res['ratios'])}; WIS "
+        f"{json.dumps(res['scores_wis'])}; ratios "
+        f"{json.dumps(res['ratios_wis'])}; headline ordering (not gated at "
+        f"this budget) {bench_torch.ordering(res['scores'])}")
+    return {"seconds": seconds, "scores": res["scores"],
+            "ratios": res["ratios"], "scores_wis": res["scores_wis"],
+            "ratios_wis": res["ratios_wis"],
+            "ordering_reproduced": bench_torch.ordering(res["scores"]),
+            "launches": launches}
+
+
+def _model_tools(ngp, wk_ctx):
+    """On phase 3's weekly model: ``decompose`` (components sum to the
+    noise-free predictive mean), ``save_model`` -> ``load_model`` (the same
+    particle tensors back) and ``device_trace`` around one ``predict_mvn``
+    (the trace names K4's kernel, launched once)."""
+    import tempfile
+
+    import torch
+
+    model, f_dates = wk_ctx["model"], wk_ctx["f_dates"]
+    out = {}
+    t0 = time.time()
+    parts = ngp.decompose(model, f_dates)
+    _sync()
+    out["decompose_s"] = time.time() - t0
+    mvn = ngp.predict_mvn(model, f_dates, include_noise=False)
+    errs = []
+    for p, d in enumerate(parts):
+        if d.get("broken"):
+            continue
+        total = model._y_mean + sum(c["mean"] for c in d["components"])
+        errs.append(float(np.max(np.abs(total - mvn.means[p]))))
+    worst = max(errs) / model._y_std
+    n_broken = sum(bool(d.get("broken")) for d in parts)
+    log(f"decompose: {out['decompose_s']:.3f} s, {len(parts)} particles "
+        f"({n_broken} broken), {sum(len(d['components']) for d in parts)} "
+        f"components; worst |sum - mean| / y_std {worst:.3e} (tolerance "
+        f"{DECOMPOSE_TOL})")
+    check(n_broken < len(parts) and worst <= DECOMPOSE_TOL,
+          f"decompose: components miss the predictive mean by {worst:.3e} "
+          f"of y_std")
+    out.update({"decompose_worst": worst, "decompose_broken": n_broken})
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT,
+                                                      ".scratch")) as tmp:
+        path = os.path.join(tmp, "weekly.npz")
+        ngp.save_model(model, path)
+        back = ngp.load_model(path)
+        a, b = model.to_dict(), back.to_dict()
+        for key in ("node_types", "params", "log_noise", "lml",
+                    "log_weight", "hmc_eps_scale", "generator_state"):
+            check(np.array_equal(a[key], b[key]),
+                  f"checkpoint: {key} changed in the round trip")
+        check(a["rng_state"] == b["rng_state"] and back.device == model.device,
+              "checkpoint: generator or device changed in the round trip")
+        out["checkpoint_bytes"] = os.path.getsize(path)
+
+        _reset_counters()
+        with ngp.device_trace(os.path.join(tmp, "trace")) as prof:
+            ngp.predict_mvn(model, f_dates)
+        launches = _counters()
+        with open(os.path.join(tmp, "trace", "trace.json")) as f:
+            trace = f.read()
+        names = {e.key for e in prof.key_averages()}
+    check(launches["K4"] == 1, f"traced predict_mvn launches {launches}")
+    check("cov_fwd_kernel" in trace
+          and any("cov_fwd_kernel" in n for n in names),
+          "device_trace: K4 (cov_fwd_kernel) is not in the trace")
+    log(f"checkpoint {out['checkpoint_bytes']} B round trip; device_trace "
+        f"names K4's cov_fwd_kernel ({len(trace)} B trace)")
+    out["launches"] = launches
+    return out
+
+
+def panel_and_workflow(wk_ctx):
+    """Phase 7: the multi-series panel (``fit_panel``, ``forecast_panel``)
+    at ``tools/panel_bench.py``'s workload, ``run_acceptance`` at
+    ``examples/acceptance.py``'s default budget, and on phase 3's weekly
+    model ``decompose``, a checkpoint round trip and ``device_trace``."""
+    import nowcastautogp_tpu_torch as ngp
+
+    # the checkpoint and the trace go to a git-ignored directory of the
+    # checkout, removed after
+    os.makedirs(os.path.join(ROOT, ".scratch"), exist_ok=True)
+    out = {}
+    t0 = time.time()
+    out["panel"] = _panel(ngp)
+    out["panel"]["seconds"] = time.time() - t0
+    out["acceptance"] = _acceptance(ngp)
+    out["tools"] = _model_tools(ngp, wk_ctx)
+    return out
+
+
 def main():
     import torch
 
@@ -1531,8 +1739,13 @@ def main():
     t0 = time.time()
     nc = nowcast_refresh(wk_ctx, dy_ctx)
     phases["nowcast"] = time.time() - t0
-    del wk_ctx, dy_ctx
+    del dy_ctx
     log(f"nowcast: {json.dumps(nc)}")
+    t0 = time.time()
+    pn = panel_and_workflow(wk_ctx)
+    phases["panel"] = time.time() - t0
+    del wk_ctx
+    log(f"panel and workflow: {json.dumps(pn)}")
     log(f"device-engine weekly fit {nc['device_engine']['fit_s']:.3f} s, "
         f"host-engine {wk['fit_s']:.3f} s")
     log(f"phase seconds: {json.dumps(phases)}")
@@ -1587,7 +1800,10 @@ def main():
                    "nowcast": nc["device_engine"]["fit_launches"][k]
                    + sum(nc[part]["launches"][k] for part in
                          ("examples", "mcmc", "scan", "serial",
-                          "chunked"))}
+                          "chunked")),
+                   "panel": pn["panel"]["launches"][k],
+                   "acceptance": pn["acceptance"]["launches"][k],
+                   "workflow": pn["tools"]["launches"][k]}
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": csrc + src,
             "replaces": tpu + tpu_src, "launches": sum(by_path.values()),
@@ -1598,7 +1814,7 @@ def main():
             "library_ms": ms[lib] if lib else None, **extra.get(k, {})})
     print(json.dumps({"phase_s": phases, "kernel_ms": ms,
                       "bounds_ms": bounds, "weekly": wk, "daily": dy,
-                      "pallas": pw, "nowcast": nc}))
+                      "pallas": pw, "nowcast": nc, "panel": pn}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

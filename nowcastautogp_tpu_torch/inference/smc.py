@@ -30,6 +30,7 @@ import torch
 from ..models.config import HMCConfig
 from ..models.gp_model import _PAD
 from ..models.structures_device import ancestor_table, config_arrays
+from ..utils.profiling import phase
 from .device_smc import smc_fit_device
 from .resample import ess
 
@@ -75,18 +76,21 @@ def fit_smc(
                            biased)
     t_start = time.time()
     for step_i, n_k in enumerate(schedule):
-        model.reweight_to(int(n_k))
-        e = ess(model.log_weight)
+        with phase("smc/reweight"):
+            model.reweight_to(int(n_k))
+            e = ess(model.log_weight)
         low_ess = e < ess_fraction * P
         do_rejuvenate = low_ess if adaptive_rejuvenation else True
         if low_ess:
-            model.resample(method)
+            with phase("smc/resample"):
+                model.resample(method)
         acc = None
         if do_rejuvenate:
-            if n_mcmc > 0:
-                acc = model.rejuvenate(n_mcmc, n_hmc, hmc_cfg)
-            elif n_hmc > 0:
-                acc = model.hmc_only(n_hmc, hmc_cfg)
+            with phase("smc/rejuvenate"):
+                if n_mcmc > 0:
+                    acc = model.rejuvenate(n_mcmc, n_hmc, hmc_cfg)
+                elif n_hmc > 0:
+                    acc = model.hmc_only(n_hmc, hmc_cfg)
         if verbose:
             logger.info(
                 "SMC step %d/%d: n=%d ESS=%.1f/%d resampled=%s "
@@ -131,14 +135,16 @@ def _fit_device(model, schedule, n_mcmc, n_hmc, hmc_cfg,
             [(iota < n_k).astype(np.float32) for n_k in steps]))
         x = model._x_d[:cap_seg].expand(P, cap_seg)
         y = model._y_d[:cap_seg].expand(P, cap_seg)
-        *state, diag = smc_fit_device(
-            *state, x, y, masks, model._gen, cfg, anc,
-            n_mcmc=n_mcmc, n_hmc=n_hmc, n_leapfrog=hmc_cfg.n_leapfrog,
-            step_size=hmc_cfg.step_size, step_jitter=hmc_cfg.step_size_jitter,
-            adaptive=bool(adaptive_rejuvenation), biased=bool(biased),
-            ess_frac=float(ess_fraction), noise_mu=noise_mu,
-            noise_sigma=noise_sigma, infer_noise=infer,
-        )
+        with phase("smc/device_fit"):
+            *state, diag = smc_fit_device(
+                *state, x, y, masks, model._gen, cfg, anc,
+                n_mcmc=n_mcmc, n_hmc=n_hmc, n_leapfrog=hmc_cfg.n_leapfrog,
+                step_size=hmc_cfg.step_size,
+                step_jitter=hmc_cfg.step_size_jitter,
+                adaptive=bool(adaptive_rejuvenation), biased=bool(biased),
+                ess_frac=float(ess_fraction), noise_mu=noise_mu,
+                noise_sigma=noise_sigma, infer_noise=infer,
+            )
         if verbose:
             ess_s, acc_s, low_s = (d.cpu().numpy() for d in diag)
             for i, n_k in enumerate(steps):

@@ -42,7 +42,8 @@ from .structures import prior_arrays, sample_particle
 from .structures_device import ancestor_table, config_arrays
 
 __all__ = ["GPModel", "num_particles", "normalized_weights", "predict_mvn",
-           "add_data", "maybe_resample", "mcmc_structure", "mcmc_parameters"]
+           "add_data", "maybe_resample", "mcmc_structure", "mcmc_parameters",
+           "threefry_key_data", "key_seed"]
 
 # Capacity granule for the fixed-shape data buffers; the LML kernels take
 # n % 32 == 0.
@@ -60,6 +61,22 @@ def _seeded_generator(device: torch.device, seed: int) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return gen
+
+
+def threefry_key_data(seed: int) -> np.ndarray:
+    """The key data of the JAX package's ``jax.random.PRNGKey(seed)`` for a
+    32-bit seed (the default threefry implementation): ``[0, seed]`` as
+    uint32."""
+    return np.asarray([0, int(seed) & 0xFFFFFFFF], dtype=np.uint32)
+
+
+def key_seed(key) -> int:
+    """The torch generator seed the port derives from JAX key data: the
+    first 8 bytes of the SHA-256 of its uint32 words (the two generators
+    produce different streams, so only the derivation is shared)."""
+    key = np.ascontiguousarray(np.asarray(key, dtype=np.uint32))
+    return int.from_bytes(hashlib.sha256(key.tobytes()).digest()[:8],
+                          "little")
 
 
 class GPModel:
@@ -132,13 +149,10 @@ class GPModel:
             node_dist_cp=list(cfg.node_dist_cp),
             changepoints=bool(cfg.changepoints), max_depth=int(cfg.max_depth),
             noise=cfg.noise, prior=copy.deepcopy(cfg.prior))
-        key = np.ascontiguousarray(np.asarray(d["key"], dtype=np.uint32))
-        seed = int.from_bytes(hashlib.sha256(key.tobytes()).digest()[:8],
-                              "little")
         dev = torch.device(device)
         state["device"] = str(dev)
         state["generator_state"] = (
-            _seeded_generator(dev, seed).get_state().numpy())
+            _seeded_generator(dev, key_seed(d["key"])).get_state().numpy())
         return cls(state)
 
     # ------------------------------------------------------------------ data

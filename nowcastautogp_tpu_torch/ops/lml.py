@@ -44,8 +44,9 @@ from .megalml import cholesky_nan
 
 __all__ = [
     "masked_kernel_matrix", "gp_lml_batched", "gp_predict_batch",
-    "sampling_cholesky", "lml_core", "lml_core_composed", "InvCoreFn",
-    "set_lml_backend", "LOG_2PI", "DEFAULT_JITTER",
+    "gp_predict_batch_rows", "sampling_cholesky", "lml_core",
+    "lml_core_composed", "InvCoreFn", "set_lml_backend", "LOG_2PI",
+    "DEFAULT_JITTER",
 ]
 
 LOG_2PI = 1.8378770664093453
@@ -203,6 +204,18 @@ def gp_predict_batch(node_types, params, log_noise, x, y, mask, xs,
              else torch.zeros_like(log_noise)) + jitter
     eye = torch.eye(xs.shape[-1], dtype=cov.dtype, device=cov.device)
     return mu, cov + extra[:, None, None] * eye
+
+
+def gp_predict_batch_rows(node_types, params, log_noise, x, y, mask, xs,
+                          jitter=DEFAULT_JITTER, include_noise=True):
+    """``gp_predict_batch`` with row-varying test points: ``xs`` is (R, m),
+    each row its own (the panel forecast's flattened series x particle
+    rows, where every series has its own time normalisation)."""
+    if xs.dim() != 2 or xs.shape[0] != params.shape[0]:
+        raise ValueError(f"xs must be (R, m) with R = {params.shape[0]}, "
+                         f"got {tuple(xs.shape)}")
+    return gp_predict_batch(node_types, params, log_noise, x, y, mask, xs,
+                            jitter, include_noise)
 
 
 def sampling_cholesky(cov):

@@ -5,13 +5,16 @@
     python3 profile_fit.py weekly    # phase 3's fit (bench.py, seed 2)
     python3 profile_fit.py pallas    # phase 5's: phase 3's fit under both
                                      # "pallas" backends (K7F/K7B, K6a/K6b)
+    python3 profile_fit.py panel     # phase 7's fit_panel (20 series x 24
+                                     # particles, device engine, seed 1)
 
 Builds the kernel library as ``chip_smoke.py`` does, then runs the fit on
 one NVIDIA card: three times unprofiled (``fit_s`` is their median, since
 single fits spread widely); under ``torch.profiler`` with CUDA activity only
 (device time by kernel: the 16 largest, and every launch of the port's
 own kernels); and with synchronised host timers around its
-phases (structure proposals, HMC, proposal LMLs, reweights).
+phases (structure proposals, HMC, proposal LMLs, reweights; for the panel,
+the device proposals' tree surgery, HMC and the reweights).
 The timers wrap the functions the fit looks up in its modules; a phase
 whose timer never fired is an error, so a renamed call site cannot leave
 a split that silently misses a phase.  Prints one JSON object, then the
@@ -42,9 +45,10 @@ def profile_fit(path, seed=2, n_particles=200):
     import torch
 
     import nowcastautogp_tpu_torch as ngp
-    from nowcastautogp_tpu_torch.inference import structure_mcmc
+    from nowcastautogp_tpu_torch.inference import device_smc, structure_mcmc
     from nowcastautogp_tpu_torch.models import gp_model
     from nowcastautogp_tpu_torch.ops import cov, lml
+    from nowcastautogp_tpu_torch.parallel import panel
 
     if path == "weekly":
         data = cs._weekly_data(ngp, seed, 150, 160)[2]
@@ -68,8 +72,18 @@ def profile_fit(path, seed=2, n_particles=200):
 
         def fit():
             cs._daily_fit(ngp, data, seed, n_particles)
+    elif path == "panel":
+        import bench_torch
+
+        datasets = bench_torch.panel_workload()[1]
+        kw = bench_torch.panel_fit_kwargs()
+
+        def fit():
+            ngp.fit_panel(datasets, seed=1, engine="device", device=cs.DEVICE,
+                          **kw)
     else:
-        raise cs.SmokeFailure(f"takes weekly, daily or pallas, not {path!r}")
+        raise cs.SmokeFailure(
+            f"takes weekly, daily, pallas or panel, not {path!r}")
     out = {"path": path, "fits_s": []}
     for _ in range(3):
         cs._sync()
@@ -102,6 +116,10 @@ def profile_fit(path, seed=2, n_particles=200):
                (structure_mcmc, "run_hmc", "hmc"),
                (structure_mcmc, "gp_lml_batched", "proposal_lml"),
                (gp_model, "gp_lml_batched", "reweight_lml")]
+    if path == "panel":
+        patches = [(device_smc, "device_propose_mixed", "propose_device"),
+                   (device_smc, "run_hmc", "hmc"),
+                   (panel, "gp_lml_batched", "reweight_lml")]
     saved = [(m, a, getattr(m, a)) for m, a, _ in patches]
     for m, a, key in patches:
         setattr(m, a, _timed(timers, key, getattr(m, a)))

@@ -20,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _session_once import once_per_session
 
 from nowcastautogp_tpu.models.config import GPConfig as JGPConfig
 from nowcastautogp_tpu.models.structures import sample_particle
@@ -66,13 +67,18 @@ def _heaps(seed):
     return types, params, rng
 
 
-@pytest.fixture(scope="module")
-def cases():
+@pytest.fixture(scope="session")
+def cases(tmp_path_factory):
     """Per shape: heaps, points, an asymmetric cotangent, and JAX's K and
     VJP of ``eval_cov_impl`` vmapped over particles.  The covariance is
     elementwise in (i, j), so every shape is the leading block of one
     (P, N1, N2) evaluation (points padded, cotangent zero outside the
-    block, shared points broadcast): one compilation for all shapes."""
+    block, shared points broadcast): one compilation for all shapes, by
+    one worker a session (``_session_once``)."""
+    return once_per_session(tmp_path_factory, "torch_cov_cases", _cases)
+
+
+def _cases():
     N1, N2 = (max(s[k] for s in SHAPES) for k in (1, 2))
 
     @jax.jit

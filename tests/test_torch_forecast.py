@@ -16,6 +16,7 @@ import inspect
 import numpy as np
 import pytest
 import torch
+from _jax_state import jax_weekly_state
 
 import nowcastautogp_tpu as jngp
 import nowcastautogp_tpu_torch as ngp
@@ -40,13 +41,14 @@ def _series(n, seed=0, weeks=True):
 
 
 @pytest.fixture(scope="module")
-def models():
-    """A JAX model after one reweight, and the port's copy of its state."""
-    dates, obs = _series(N_TRAIN + HORIZON)
-    jm = jngp.GPModel(dates[:N_TRAIN], np.log(obs[:N_TRAIN]), n_particles=P,
-                      config=jngp.GPConfig(max_depth=3), seed=5)
-    jm.reweight_to(N_TRAIN)
-    return jm, GPModel.from_jax_state(jm.to_dict(), device="cpu"), dates
+def models(tmp_path_factory):
+    """A JAX model after one reweight on the first 24 weeks of ``_series``
+    (``_jax_state``'s state, built once a session), and the port's copy of
+    its state."""
+    state = jax_weekly_state(tmp_path_factory)
+    dates, _ = _series(N_TRAIN + HORIZON)
+    return (jngp.GPModel(state), GPModel.from_jax_state(state, device="cpu"),
+            dates)
 
 
 def test_predict_mvn_matches_jax(models):
@@ -121,7 +123,7 @@ def test_tiny_fit_through_the_composed_path_then_forecast(monkeypatch):
 
 @pytest.mark.parametrize("fn", [
     ngp.make_and_fit_model, GPModel.__init__, GPModel.from_jax_state,
-    ngp.quantile_matrix_device,
+    ngp.quantile_matrix_device, ngp.fit_panel,
 ])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

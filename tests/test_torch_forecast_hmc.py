@@ -38,6 +38,7 @@ import datetime as dt
 import numpy as np
 import pytest
 import torch
+from _jax_state import jax_weekly_state
 from _session_once import once_per_session
 
 import nowcastautogp_tpu as jngp
@@ -80,19 +81,12 @@ def _accepted(scale_after, scale_before, n_steps):
             + hmc._TARGET_ACCEPT * n_steps)
 
 
-def _jax_state():
-    dates, obs = _series(N_TRAIN + HORIZON)
-    jm = jngp.GPModel(dates[:N_TRAIN], np.log(obs[:N_TRAIN]), n_particles=P,
-                      config=jngp.GPConfig(max_depth=3), seed=5)
-    jm.reweight_to(N_TRAIN)
-    return jm.to_dict(), dates[N_TRAIN:]
-
-
 @pytest.fixture(scope="session")
 def state(tmp_path_factory):
-    """The JAX state both packages start from, and the forecast dates."""
-    return once_per_session(tmp_path_factory,
-                            "forecast_hmc_state", _jax_state)
+    """The JAX state both packages start from (``_jax_state``'s, on the
+    first 24 weeks of ``_series``), and the forecast dates."""
+    return (jax_weekly_state(tmp_path_factory),
+            _series(N_TRAIN + HORIZON)[0][N_TRAIN:])
 
 
 def _jax_runs(state, f_dates):

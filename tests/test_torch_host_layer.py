@@ -185,14 +185,21 @@ def test_series_families_bitwise(family):
 
 
 def test_import_loads_no_jax():
-    """A fresh interpreter importing the port loads neither jax nor the JAX
-    package, and no module of the port (nor the jax-free scripts
-    ``chip_smoke.py`` and ``bench_torch.py``) names jax in an import."""
+    """A fresh interpreter importing the port, and each of the workflow
+    modules by name, loads neither jax nor the JAX package, and no module
+    of the port (nor the jax-free scripts ``chip_smoke.py``,
+    ``bench_torch.py`` and ``profile_fit.py``) names jax in an import."""
+    modules = ("parallel.panel", "eval.acceptance", "eval.wis",
+               "eval.submission", "models.decompose", "utils.data",
+               "utils.profiling", "utils.serialize")
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
         "import nowcastautogp_tpu_torch\n"
-        "new = set(sys.modules) - before\n"
+        + "".join(f"import nowcastautogp_tpu_torch.{m}\n" for m in modules)
+        + "new = set(sys.modules) - before\n"
+        "assert all(f'nowcastautogp_tpu_torch.{m}' in new for m in "
+        f"{modules!r})\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nowcastautogp_tpu'))\n"
         "assert not bad, bad\n"
@@ -201,7 +208,8 @@ def test_import_loads_no_jax():
                    cwd=PKG.parent, timeout=120)
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|nowcastautogp_tpu)\b")
     scripts = [PKG.parent / name for name in ("chip_smoke.py",
-                                              "bench_torch.py")]
+                                              "bench_torch.py",
+                                              "profile_fit.py")]
     for path in [*PKG.rglob("*.py"), *scripts]:
         for line in path.read_text().splitlines():
             assert not banned.match(line), (path, line)

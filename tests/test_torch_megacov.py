@@ -2,7 +2,8 @@
 
 On the CPU every wrapper runs its kernel's plain version, so these tests
 hold the plain versions and the glue around them against the JAX package's
-plain references, computed once per module: ``kernels.eval_cov_batch`` and
+plain references, computed once per session (``_session_once``):
+``kernels.eval_cov_batch`` and
 its ``jax.vjp``, ``lml._lml_core_inv`` (the analytic-VJP inverse core with
 XLA's Cholesky) and ``gp_lml_batched(backend="jnp")``.  No JAX Pallas
 kernel runs.  Inputs are made with numpy from a seed.
@@ -13,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _session_once import once_per_session
 
 from nowcastautogp_tpu.models.config import GPConfig as JGPConfig
 from nowcastautogp_tpu.models.structures import sample_particle
@@ -70,12 +72,16 @@ def _masked_A(types, params, n, n_active, seed):
     return A.astype(np.float32), ym.astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def cov_cases():
+@pytest.fixture(scope="session")
+def cov_cases(tmp_path_factory):
     """(a): heaps, x, an asymmetric cotangent and the JAX interpreter's
     covariance and full VJP, at n = 64 (P = 4, depth 4) and n = 520
     (P = 2, depth 3)."""
+    return once_per_session(tmp_path_factory, "megacov_cov_cases",
+                            _cov_cases)
 
+
+def _cov_cases():
     @jax.jit
     def cov_vjp(types, params, x, cot):
         K, vjp = jax.vjp(lambda p: jkernels.eval_cov_batch(types, p, x, x),
@@ -115,12 +121,16 @@ def test_plain_k4_k5_match_jax_vjp(cov_cases, n):
     torch.testing.assert_close(leaf.grad, g, rtol=0, atol=0)
 
 
-@pytest.fixture(scope="module")
-def inv_cases():
+@pytest.fixture(scope="session")
+def inv_cases(tmp_path_factory):
     """(b): masked SPD A and ym, a cotangent, and ``_lml_core_inv``'s
     value and VJP, at n in {64, 96} (K3's envelope) and n = 72 (outside it:
     the inverse core's cholesky + triangular-solve form)."""
+    return once_per_session(tmp_path_factory, "megacov_inv_cases",
+                            _inv_cases)
 
+
+def _inv_cases():
     @jax.jit
     def core_vjp(A, ym, c):
         val, vjp = jax.vjp(jlml._lml_core_inv, A, ym)
@@ -262,13 +272,13 @@ def _lone_constant(n=544, n_active=530, seed=0):
     """Particle 0 of ``tests/test_torch_cuda.py::_batch(n=544, n_active=530,
     seed=0)``: a lone Constant, whose covariance is rank one, at P = 1.  The
     draws are made in that batch's order and shapes (9 particles, 31 slots)
-    and then sliced."""
+    and then sliced to particle 0 and its one live slot: a tree's
+    covariance and gradients do not depend on its empty slots, and the
+    plain interpreter would evaluate all five levels of them."""
     rng = np.random.default_rng(seed)
     P = 9
-    params = rng.normal(0.0, 0.5, (P, 31, 3)).astype(np.float32)[:1]
-    types = np.zeros((1, 31), np.int32)
-    types[0, 0] = st.CONST
-    params[types == 0] = 0.0
+    params = rng.normal(0.0, 0.5, (P, 31, 3)).astype(np.float32)[:1, :1]
+    types = np.full((1, 1), st.CONST, np.int32)
     mask = (np.arange(n) < n_active).astype(np.float32)[None]
     diagv = mask * (np.exp(rng.normal(-2.0, 0.3, (P, 1)))[:1] + 1e-5) + 1 - mask
     x = np.linspace(0, 1, n)[None]

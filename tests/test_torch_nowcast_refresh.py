@@ -47,7 +47,7 @@ import datetime as dt
 import numpy as np
 import pytest
 import torch
-from _session_once import once_per_session
+from _jax_state import jax_weekly_state
 
 import nowcastautogp_tpu as jngp
 import nowcastautogp_tpu_torch as ngp
@@ -99,19 +99,11 @@ def _options(branch):
                 branch, dict(n_hmc=1, ess_threshold=0.5))
 
 
-def _jax_state():
-    dates, y = _series()
-    jm = jngp.GPModel(dates[:N_TRAIN], y[:N_TRAIN], n_particles=P,
-                      config=jngp.GPConfig(max_depth=3), seed=5)
-    jm.reweight_to(N_TRAIN)
-    return jm.to_dict()
-
-
 @pytest.fixture(scope="session")
 def state(tmp_path_factory):
-    """The JAX state, built once per session (``_session_once``)."""
-    return once_per_session(tmp_path_factory,
-                            "nowcast_refresh_state", _jax_state)
+    """The JAX state on the first 24 weeks of ``_series``, built once per
+    session (``_jax_state``)."""
+    return jax_weekly_state(tmp_path_factory)
 
 
 def _port(state):

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _session_once import once_per_session
 
 import nowcastautogp_tpu as jngp
 import nowcastautogp_tpu_torch as ngp
@@ -61,17 +62,24 @@ def _nowcasts(S, seed=1):
     return (nc_dates, draws, dates[N_TRAIN + 2:N_TRAIN + 2 + HORIZON])
 
 
-@pytest.fixture(scope="module")
-def fitted():
-    """A JAX model after two reweights, and the port's copy of its state
-    before them (the port then repeats the reweights itself)."""
+def _fitted_states():
     jm, _ = _models()
     start = GPModel.from_jax_state(jm.to_dict(), device="cpu")
     lml = []
     for n_k in (10, N_TRAIN):
         jm.reweight_to(n_k)
         lml.append(np.asarray(jm._lml_d))
-    return jm, start, lml
+    return jm.to_dict(), start.to_dict(), lml
+
+
+@pytest.fixture(scope="module")
+def fitted(tmp_path_factory):
+    """A JAX model after two reweights, and the port's copy of its state
+    before them (the port then repeats the reweights itself); the states
+    are built by one worker a session (``_session_once``)."""
+    jstate, start, lml = once_per_session(tmp_path_factory, "slice_fitted",
+                                          _fitted_states)
+    return jngp.GPModel(jstate), GPModel(start), lml
 
 
 def test_particles_match_jax():
