@@ -2,7 +2,7 @@
 """bench.py's workload and quality gates on the PyTorch port, on one card.
 
     python3 bench_torch.py [--engine host|device]
-    python3 bench_torch.py --panel [--serial]
+    python3 bench_torch.py --panel [--serial] [--mesh]
     python3 bench_torch.py --acceptance [--full]
 
 Default mode: the workload of ``bench.py:46-100`` at its operating point,
@@ -19,8 +19,10 @@ The gates are ``bench.py:108-118``'s, with its numbers and rounding: the
 mean log-CRPS of the nhsn seeds at most 0.105, their mean coverage90 in
 [0.70, 1.0], and the median log-CRPS of the ``outbreak_cp`` seeds at most
 0.45.  Prints each run's fit and forecast seconds and scores, the medians,
-the card's ``nvidia-smi`` name and power limit, then one JSON line; exits
-1 when a gate fails, 2 when torch sees no CUDA device.  Imports nothing of
+the fit's operations and MFU on the H100's peaks at the median nhsn fit
+time (``utils/flops.py``, as ``bench.py:209-222`` prints XLA's), the
+card's ``nvidia-smi`` name and power limit, then one JSON line; exits 1
+when a gate fails, 2 when torch sees no CUDA device.  Imports nothing of
 jax or the JAX package.
 
 ``--panel``: the JAX package's ``tools/panel_bench.py`` workload on the
@@ -32,7 +34,8 @@ series' log-CRPS must stay under that tool's collapse gate of 0.2 (exit 1
 otherwise).  ``--serial`` adds the same 20 series fitted one by one
 through ``make_and_fit_model`` at identical budgets (the device engine,
 seeds 1000 + s) and forecast with ``forecast``: both fit times and both
-per-series log-CRPS medians.
+per-series log-CRPS medians.  ``--mesh`` shards the panel's rows over
+every visible card (``make_mesh()``).  Both print each fit's MFU.
 
 ``--acceptance``: ``run_acceptance`` (the five-approach CRPS comparison of
 the JAX package's ``examples/acceptance.py``) with the panel fit, on the
@@ -182,7 +185,22 @@ def score_series(fcs, truths, device):
     return crps, cover
 
 
-def run_panel(serial=False, draws=500, device="cuda"):
+def fit_mfu(config, n_rows, n_train, proportion, fit_s, types=None):
+    """``utils/flops``' operations and MFU of a fit at ``bench.py``'s move
+    budget (14 x 5 x 5) over ``n_rows`` rows of ``n_train`` points."""
+    from nowcastautogp_tpu_torch.inference.schedule import linear_schedule
+    from nowcastautogp_tpu_torch.models.gp_model import _PAD
+    from nowcastautogp_tpu_torch.utils.flops import fit_cost_analysis, mfu
+
+    ops, _ = fit_cost_analysis(
+        P=n_rows, config=config,
+        schedule=linear_schedule(n_train, max(proportion, 1.0 / n_train)),
+        cap_full=max(64, -(-n_train // _PAD) * _PAD), n_mcmc=N_MCMC,
+        n_hmc=N_HMC, n_leapfrog=N_LEAPFROG, types=types)
+    return mfu(ops, fit_s)
+
+
+def run_panel(serial=False, draws=500, device="cuda", mesh=None):
     import nowcastautogp_tpu_torch as ngp
 
     dates, datasets, invs, truths = panel_workload()
@@ -191,12 +209,12 @@ def run_panel(serial=False, draws=500, device="cuda"):
     _sync(device)
     t0 = time.time()
     models = ngp.fit_panel(datasets, seed=1, engine="device", device=device,
-                           **kw)
+                           mesh=mesh, **kw)
     _sync(device)
     fit_s = time.time() - t0
     t0 = time.time()
     fcs = ngp.forecast_panel(models, f_dates, draws,
-                             inv_transformations=invs, seed=2)
+                             inv_transformations=invs, seed=2, mesh=mesh)
     forecast_s = time.time() - t0
     crps, cover = score_series(fcs, truths, device)
     out = {"panel": {
@@ -204,10 +222,15 @@ def run_panel(serial=False, draws=500, device="cuda"):
         "log_crps_per_series": crps,
         "log_crps_median": float(np.median(crps)),
         "coverage90_mean": float(np.mean(cover)),
+        "shards": mesh.size if mesh is not None else 1,
+        "mfu": fit_mfu(kw["config"], len(datasets) * kw["n_particles"],
+                       len(datasets[0].y), kw["smc_data_proportion"], fit_s,
+                       np.concatenate([m._host_types for m in models])),
         "gate_ok": all(np.isfinite(c) and c <= PANEL_GATE_MAX_LOG_CRPS
                        for c in crps)}}
     print(f"panel: fit {fit_s:.3f} s, forecast {forecast_s:.3f} s, "
-          f"log-CRPS median {out['panel']['log_crps_median']!r}", flush=True)
+          f"log-CRPS median {out['panel']['log_crps_median']!r}, MFU "
+          f"{json.dumps(out['panel']['mfu'])}", flush=True)
     if serial:
         del models
         _sync(device)
@@ -308,11 +331,15 @@ def main(argv=None):
     mode.add_argument("--acceptance", action="store_true")
     ap.add_argument("--serial", action="store_true",
                     help="--panel: also fit the series one by one")
+    ap.add_argument("--mesh", action="store_true",
+                    help="--panel: shard the rows over every visible card")
     ap.add_argument("--full", action="store_true",
                     help="--acceptance: the vignette's canonical budgets")
     args = ap.parse_args(argv)
-    if args.serial and not args.panel or args.full and not args.acceptance:
-        ap.error("--serial goes with --panel, --full with --acceptance")
+    if ((args.serial or args.mesh) and not args.panel
+            or args.full and not args.acceptance):
+        ap.error("--serial and --mesh go with --panel, --full with "
+                 "--acceptance")
 
     import torch
 
@@ -329,8 +356,13 @@ def main(argv=None):
         t0 = time.time()
         cudalib.build_library()
         build_s = time.time() - t0
-        out = (run_panel(args.serial) if args.panel
-               else run_acceptance_mode(args.full))
+        if args.panel:
+            import nowcastautogp_tpu_torch as ngp
+
+            mesh = ngp.make_mesh() if args.mesh else None
+            out = run_panel(args.serial, mesh=mesh)
+        else:
+            out = run_acceptance_mode(args.full)
         print(smi)
         print(json.dumps({"mode": "panel" if args.panel else "acceptance",
                           "build_s": build_s, **out, "device": smi}))
@@ -373,6 +405,13 @@ def main(argv=None):
         for key in ("fit_s", "forecast_s")}
     for key, value in medians.items():
         print(f"{key}: {value:.3f}")
+    # operations of the fit's LML calls on a sample of the prior's trees
+    # (bench.py asks XLA for its program's), at the median nhsn fit time
+    import nowcastautogp_tpu_torch as ngp
+
+    mfu_detail = fit_mfu(ngp.GPConfig(max_depth=5), 200, 150, 0.1,
+                         medians["nhsn_fit_s_median"])
+    print(f"MFU: {json.dumps(mfu_detail)}")
     print(smi)
     print(json.dumps({
         "engine": args.engine, "warmup_s": warmup_s, "runs": runs,
@@ -381,7 +420,8 @@ def main(argv=None):
         "gate_max_log_crps": GATE_MAX_LOG_CRPS,
         "gate_coverage90": list(GATE_COVERAGE90),
         "gate2_max_median_log_crps": GATE2_MAX_MEDIAN_LOG_CRPS,
-        "quality_gate_ok": all(gates.values()), "device": smi}))
+        "quality_gate_ok": all(gates.values()), **mfu_detail,
+        "device": smi}))
     if not all(gates.values()):
         print(f"QUALITY GATE FAILED: {gates}", file=sys.stderr)
         return 1

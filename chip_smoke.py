@@ -68,7 +68,21 @@ Phases (any failure exits nonzero before the final line):
    components sum to the noise-free predictive mean within
    ``DECOMPOSE_TOL``), a ``save_model`` -> ``load_model`` round trip
    (the same particle tensors) and ``device_trace`` around one
-   ``predict_mvn`` (the trace names K4's ``cov_fwd_kernel``).
+   ``predict_mvn`` (the trace names K4's ``cov_fwd_kernel``);
+8. mesh and beyond 2,048 points (``mesh_and_large_n``): phase 7's panel
+   and phase 6's ``n_hmc=1`` nowcast refresh (S = 100) under
+   ``make_mesh()`` and under a rehearsal mesh of 4 shards on cuda:0 (and
+   over every card when several are visible), K1/K2 asserted at shards x
+   the unsharded counts, ``lml_rows_sharded`` bitwise ``gp_lml_batched``,
+   every series under 0.2 and the panel median within 0.02 of phase 7's;
+   K4/K5 at n = 2,208 and 4,096 against the float64 plain versions (8 and
+   4 particles), timed at P = 200; the composed core's value and gradient
+   at P = 200, n = 2,208 and 4,096 (where the particle budget binds) with
+   its peak memory held under the budget; a 2,190-day daily fit of 32
+   particles (capacity 2,208) and its forecast.  Phases 3, 4, 6, 7 and 8
+   print ``utils/flops``' call counts, operations and MFU for their fits;
+   on the device engine's fits (phase 6, phase 7) the formula's call
+   counts must equal the K1/K2 launches.
 
 Phase 2 also holds K6a (L, alpha), K6b (L^-1) and the core built on them
 (value and gradients) at P = 200 and n in {32, 64, 96, 128, 160, 576}
@@ -85,8 +99,8 @@ its plain version and, for K6a/K6b, the library call.  Phases 4 and 5 log
 the fitted ensembles' heap classes.
 
 Launch counts of every kernel are set to 0 just before phases 3, 4 and 5
-(and before phase 5's forecast, each part of phase 6 and each part of
-phase 7) and read just after each.  Prints
+(and before phase 5's forecast and each part of phases 6, 7 and 8) and
+read just after each.  Prints
 per-phase seconds, a JSON line of results, the ``kernels`` line, the
 ``nvidia-smi`` name/power line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -119,11 +133,6 @@ ILL_FACTOR = 10.0
 # one-seed collapse bound on the end-to-end log-CRPS (bench.py gates the
 # three-seed mean at 0.105, tools/daily_bench.py at 0.12)
 MAX_LOG_CRPS = 0.2
-
-# the card's peaks (NVIDIA H100 SXM data sheet): FP32 outside the tensor
-# cores and HBM bandwidth, for each kernel's bound
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
 
 DEVICE = "cuda"
 
@@ -844,58 +853,14 @@ def _kernel_ms(ms, name, fn, warmup=3, runs=20):
     ms[name + "_spread"] = [dev_spread, host_spread]
 
 
-# FP32 operations per element and heap node, counted from the node bodies
-# of csrc/heapwalk.cuh (an exp, log, sinpi or division counts as one
-# operation, an FMA as two), by node type code: forward walk, then the
-# backward sweep's own work; plus the per-element distance terms.
-_FWD_OPS = np.array([0, 0, 4, 4, 6, 7, 1, 1, 19])
-_BWD_OPS = np.array([0, 2, 8, 5, 15, 17, 0, 2, 35])
-_ELEM_OPS = 5
-
-
-def _bound(nbytes, ops):
-    """(bound ms, "bytes" or "operations") on this card's published peaks."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def _bounds(types, n, m=None, sym=True):
-    """Each kernel's bound at P particles of heaps ``types`` and capacity n
-    (K7F/K7B: n x m points, shared by the particles; ``sym``: K(x, x)):
-    bytes of its inputs read once and outputs written once, against the
-    operations these trees need (K4/K5 and a symmetric K7F/K7B:
-    lower-triangle elements; a general K7F/K7B: all n m elements; Cholesky
-    and triangular inverse n^3 / 3 flops each).  A symmetric or triangular
-    input (K3/K6a's SPD matrix, K6b's factor) is read as its lower triangle
-    only; the dense (n, n) output is written in full."""
-    t = types.cpu().numpy()
-    P, N = t.shape
-    m = n if m is None else m
-    sym = sym and m == n
-    E = n * (n + 1) / 2
-    pairs = E if sym else n * m                 # K7F/K7B element walks
-    pts = 4 * (n if sym else n + m)
-    fwd = float((_ELEM_OPS + _FWD_OPS[t].sum(1)).sum())   # over particles
-    bwd = float(_BWD_OPS[t].sum())
-    heap = 4 * (P * N + 3 * P * N)
-    chol = P * (n ** 3 / 3 + 2 * n * n)
-    tri = 4 * P * n * (n + 1) / 2 + 4 * P * n * n   # lower in, dense out
-    return {
-        "K1": _bound(heap + 4 * 4 * P * n + 4 * (P + 3 * P * N + 2 * P * n),
-                     E * (2 * fwd + bwd + 6 * P) + chol
-                     + P * 2 * n ** 3 / 3),
-        "K2": _bound(heap + 4 * 4 * P * n + 4 * P, E * (fwd + 3 * P) + chol),
-        "K3": _bound(tri, P * 2 * n ** 3 / 3),
-        "K4": _bound(heap + 4 * P * n + 4 * P * n * n, E * fwd),
-        "K5": _bound(heap + 4 * P * n + 4 * P * n * n + 12 * P * N,
-                     E * (fwd + bwd + P)),
-        "K6a": _bound(tri + 8 * P * n, chol),
-        "K6b": _bound(tri, P * n ** 3 / 3),
-        "K7F": _bound(heap + pts + 4 * P * n * m, pairs * fwd),
-        "K7B": _bound(heap + pts + 4 * P * n * m + 12 * P * N,
-                      pairs * (fwd + bwd + P)),
-    }
+    """Each kernel's (bound ms, "bytes" or "operations") at P particles of
+    heaps ``types`` and capacity n (K7F/K7B: n x m points; ``sym``:
+    K(x, x)), from ``utils/flops.py``'s counts and the card's peaks."""
+    from nowcastautogp_tpu_torch.utils.flops import bound_ms, kernel_costs
+
+    return {k: bound_ms(*c) for k, c in kernel_costs(
+        types.cpu().numpy(), n, m, sym).items()}
 
 
 def kernel_timing():
@@ -1183,9 +1148,12 @@ def weekly(seed=2, n_particles=200, n_train=150, n_scenarios=100,
     check(launches["K4"] > 0, "K4 was not launched on the weekly path")
     crps, cover90 = _score(ngp, fc, ctx["truth"])
     ctx["model"] = model
+    # the formula counts the device engine's calls (3,650 / 10); this host
+    # engine's fit makes 3,640 / 150
     return {"fit_s": fit_s, "nowcast_s": nowcast_s, "log_crps": crps,
             "coverage90": cover90, "fit_sha256": _fingerprint(model),
-            "launches": launches}, ctx
+            "launches": launches,
+            "flops": _fit_cost(ngp, model, n_train, 0.1, 14, 5, fit_s)}, ctx
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1254,7 +1222,8 @@ def daily(seed=2, n_particles=200, n_train=560, horizon=28, draws=2000):
     return {"fit_s": fit_s, "forecast_s": forecast_s, "log_crps": crps,
             "coverage90": cover90, "fit_sha256": fit_sha256,
             "fit_classes": classes, "fit_launches": fit_launches,
-            "launches": launches}, ctx
+            "launches": launches,
+            "flops": _fit_cost(ngp, model, n_train, 0.125, 8, 5, fit_s)}, ctx
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1453,6 +1422,10 @@ def nowcast_refresh(wk_ctx, dy_ctx, seed=2, n_particles=200, n_train=150,
     check((fit_launches["K1"], fit_launches["K2"]) == (3650, 10),
           f"device-engine fit K1/K2 launches {fit_launches['K1']}/"
           f"{fit_launches['K2']}, expected 3650/10")
+    cost = _fit_cost(ngp, dmodel, n_train, 0.1, 14, 5, fit_s)
+    check((cost["gradient_calls"], cost["value_calls"]) == (3650, 10),
+          f"utils/flops counts {cost['gradient_calls']} gradient / "
+          f"{cost['value_calls']} value calls, the device engine 3650/10")
     t0 = time.time()
     fc = ngp.forecast_with_nowcasts(dmodel, ctx["ncs"], ctx["f_dates"],
                                     draws_per, inv_transformation=ctx["inv"],
@@ -1463,7 +1436,8 @@ def nowcast_refresh(wk_ctx, dy_ctx, seed=2, n_particles=200, n_train=150,
     out["device_engine"] = {
         "fit_s": fit_s, "nowcast_s": nowcast_s, "log_crps": crps,
         "coverage90": cover90, "fit_sha256": _fingerprint(dmodel),
-        "fit_classes": classes, "fit_launches": fit_launches}
+        "fit_classes": classes, "fit_launches": fit_launches,
+        "flops": cost}
     del dmodel
 
     model, ncs, f_dates, inv = (wk_ctx[k] for k in ("model", "ncs",
@@ -1554,6 +1528,12 @@ def _panel(ngp, draws=500):
     check((fit_launches["K1"], fit_launches["K2"]) == want,
           f"panel fit K1/K2 launches {fit_launches['K1']}/"
           f"{fit_launches['K2']}, expected {want[0]}/{want[1]}")
+    cost = _fit_cost(ngp, models, len(datasets[0].y),
+                     kw["smc_data_proportion"], kw["n_mcmc"], kw["n_hmc"],
+                     fit_s, n_leap)
+    check((cost["gradient_calls"], cost["value_calls"]) == want,
+          f"utils/flops counts {cost['gradient_calls']} / "
+          f"{cost['value_calls']}, the panel's launches {want}")
     _reset_counters()
     t0 = time.time()
     fcs = ngp.forecast_panel(models, f_dates, draws,
@@ -1583,7 +1563,7 @@ def _panel(ngp, draws=500):
             "log_crps_median": float(np.median(crps)),
             "coverage90_mean": float(np.mean(cover)),
             "fit_launches": fit_launches, "forecast_launches": fc_launches,
-            "launches": launches}
+            "launches": launches, "flops": cost}
 
 
 def _acceptance(ngp):
@@ -1707,6 +1687,354 @@ def panel_and_workflow(wk_ctx):
     return out
 
 
+# ------------------------------------------------------------------ phase 8
+
+
+def _fit_cost(ngp, models, n_train, proportion, n_mcmc, n_hmc, fit_s,
+              n_leapfrog=5):
+    """``utils/flops``' call counts, operations and MFU of a fit of
+    ``models`` (one, or a panel's: their rows together), the fitted trees'
+    walks standing for every call's."""
+    from nowcastautogp_tpu_torch.utils import flops
+
+    models = models if isinstance(models, list) else [models]
+    types = np.concatenate([m._host_types for m in models])
+    schedule = ngp.linear_schedule(n_train, max(proportion, 1.0 / n_train))
+    kw = dict(schedule=schedule, cap_full=int(models[0]._cap),
+              n_mcmc=n_mcmc, n_hmc=n_hmc, n_leapfrog=n_leapfrog)
+    counts = flops.fit_call_counts(**kw)
+    ops, nbytes = flops.fit_cost_analysis(
+        P=types.shape[0], config=models[0].config, types=types, **kw)
+    out = {"value_calls": sum(c[1] for c in counts),
+           "gradient_calls": sum(c[2] for c in counts), "ops": ops,
+           "bytes": nbytes, **flops.mfu(ops, fit_s)}
+    log(f"flops: {json.dumps(out)}")
+    return out
+
+
+def _mesh_panel(ngp, mesh, label):
+    """Phase 7's panel (20 series x 24 particles, device engine) under
+    ``mesh``: K1/K2 = shards x the unsharded counts, every series' log-CRPS
+    under the gate.  Returns its results and the per-series scores."""
+    import bench_torch
+
+    dates, datasets, invs, truths = bench_torch.panel_workload()
+    kw = bench_torch.panel_fit_kwargs()
+    f_dates = dates[len(datasets[0].y):]
+    n_steps = len(ngp.linear_schedule(len(datasets[0].y),
+                                      kw["smc_data_proportion"]))
+    per_shard = (n_steps * (1 + kw["n_mcmc"] * (
+        1 + kw["n_hmc"] * kw["hmc_config"].n_leapfrog)), n_steps)
+    _reset_counters()
+    _sync()
+    t0 = time.time()
+    models = ngp.fit_panel(datasets, seed=1, engine="device", mesh=mesh,
+                           **kw)
+    _sync()
+    fit_s = time.time() - t0
+    launches = _counters()
+    want = tuple(mesh.size * c for c in per_shard)
+    check((launches["K1"], launches["K2"]) == want,
+          f"mesh panel ({label}): K1/K2 {launches['K1']}/{launches['K2']}, "
+          f"expected {mesh.size} shards x {per_shard} = {want}")
+    fcs = ngp.forecast_panel(models, f_dates, 500, inv_transformations=invs,
+                             seed=2, mesh=mesh)
+    crps, _ = bench_torch.score_series(fcs, truths, DEVICE)
+    worst = int(np.argmax(crps))
+    check(max(crps) <= bench_torch.PANEL_GATE_MAX_LOG_CRPS,
+          f"mesh panel ({label}): series {worst} log-CRPS {crps[worst]:.4f}")
+    log(f"mesh panel ({label}, {mesh}): fit {fit_s:.3f} s, K1/K2 {want}, "
+        f"log-CRPS median {np.median(crps):.5f}, max {max(crps):.5f}")
+    return {"shards": mesh.size, "cards": len(set(mesh.devices)),
+            "fit_s": fit_s, "log_crps_median": float(np.median(crps)),
+            "log_crps_max": float(max(crps)), "launches": launches}
+
+
+def _sharded_lml_bitwise(ngp, mesh):
+    """``lml_rows_sharded`` against ``gp_lml_batched`` on the same 480 rows
+    at n = 160 (K2, each row alone): bitwise."""
+    import torch
+
+    from nowcastautogp_tpu_torch.ops import lml
+    from nowcastautogp_tpu_torch.parallel.sharding import lml_rows_sharded
+
+    types, params, _, mask, x, _ = _population(480, 160, seed=21,
+                                               n_active=150)
+    P, n = x.shape
+    gen = torch.Generator(DEVICE).manual_seed(5)
+    log_noise = -2.0 + 0.3 * torch.randn(P, generator=gen, device=DEVICE)
+    y = torch.randn((P, n), generator=gen, device=DEVICE)
+    with torch.no_grad():
+        ref = lml.gp_lml_batched(types, params, log_noise, x, y, mask)
+        got = lml_rows_sharded(types, params, log_noise, x, y, mask,
+                               mesh=mesh)
+    _sync()
+    check(_bitwise(got, ref), f"lml_rows_sharded on {mesh} differs from "
+          "gp_lml_batched at n = 160")
+    return True
+
+
+def _mesh_nowcast(ngp, wk_ctx, mesh, label):
+    """``forecast_with_nowcasts(mesh=)`` with the examples' ``n_hmc=1``
+    refresh on phase 3's model, S = 100: K2 twice and K1 6 times a
+    shard."""
+    model, ncs, f_dates, inv = (wk_ctx[k] for k in ("model", "ncs",
+                                                    "f_dates", "inv"))
+    return _nowcast_part(
+        f"mesh {label} (n_hmc=1, S={len(ncs)})", ngp, wk_ctx,
+        lambda: ngp.forecast_with_nowcasts(
+            model, ncs, f_dates, 20, inv_transformation=inv, n_hmc=1,
+            ess_threshold=0.5, mesh=mesh), want=(6 * mesh.size,
+                                                 2 * mesh.size))
+
+
+def _k45_beyond_2048():
+    """K4 and K5 beyond the JAX kernel's 2048, held against their float64
+    plain versions on a few particles (the interpreter holds about N
+    planes a particle) and timed at the daily fit's P = 200 beside their
+    bounds.  Returns (max abs errors, ms, bounds)."""
+    import torch
+
+    from nowcastautogp_tpu_torch.ops import megacov
+
+    err, ms, bounds = {"K4": 0.0, "K5": 0.0}, {}, {}
+    gen = torch.Generator(DEVICE).manual_seed(8)
+    for n, P in ((2208, 8), (4096, 4)):
+        for name, (types, params, _, _, x, _) in (
+                (f"prior P={P} n={n}", _population(P, n, seed=n)),
+                (f"hand[8:10] n={n}", tuple(
+                    a[8:10].contiguous() for a in _hand_batch(n, n + 1)))):
+            K = megacov.megacov_fwd(types, params, x)
+            K32 = _chunked(megacov.megacov_fwd_plain, 1, types, params, x)
+            K64 = _chunked(megacov.megacov_fwd_plain, 1, types,
+                           params.double(), x.double())
+            ok = torch.isfinite(K64).flatten(1).all(1)
+            check(bool(ok.all()), f"{name}: float64 covariance not finite")
+            e4, _ = _parity(f"{name} K4", (K,), (K32,), (K64,), ok,
+                            COV_RTOL, COV_ATOL)
+            del K32, K64
+            dK = torch.randn(K.shape, generator=gen, device=DEVICE)
+            g = megacov.megacov_bwd(types, params, x, dK)
+            g32 = _chunked(megacov.megacov_bwd_plain, 1, types, params, x,
+                           dK)
+            g64 = _chunked(megacov.megacov_bwd_plain, 1, types,
+                           params.double(), x.double(), dK.double())
+            e5, ill5 = _parity(f"{name} K5 (asymmetric dK)", (g,), (g32,),
+                               (g64,), ok, COT_TOL_LARGE, COT_TOL_LARGE)
+            check(_bitwise(K, megacov.megacov_fwd(types, params, x))
+                  and _bitwise(g, megacov.megacov_bwd(types, params, x, dK)),
+                  f"{name}: K4/K5 differ between two launches")
+            err["K4"], err["K5"] = max(err["K4"], e4), max(err["K5"], e5)
+            log(f"parity ok: {name}: K4 {e4:.3g}, K5 {e5:.3g} (ill lanes "
+                f"{ill5})")
+            del K, dK, g, g32, g64
+            torch.cuda.empty_cache()
+        t_n, p_n, _, _, x_n, _ = _population(200, n, seed=9)
+        dK_n = torch.randn((200, n, n), device=DEVICE,
+                           generator=torch.Generator(DEVICE).manual_seed(n))
+        _kernel_ms(ms, f"K4_n{n}", lambda: megacov.megacov_fwd(t_n, p_n, x_n),
+                   1, 5)
+        _kernel_ms(ms, f"K5_n{n}",
+                   lambda: megacov.megacov_bwd(t_n, p_n, x_n, dK_n), 1, 5)
+        b_n = _bounds(t_n, n)
+        bounds.update({f"K4_n{n}": b_n["K4"], f"K5_n{n}": b_n["K5"]})
+        del dK_n
+        torch.cuda.empty_cache()
+    return err, ms, bounds
+
+
+def _core_beyond_2048(n, P=200):
+    """The composed LML core's value and gradient at P particles and
+    capacity n: ms per call, the particles a chunk, and the peak device
+    bytes above what was allocated before, held under the budget of the
+    chunk's particles.  Its K4/K5 launches are counted."""
+    import torch
+
+    from nowcastautogp_tpu_torch.ops import lml
+
+    types, params, diagv, mask, x, ym = _population(P, n, seed=n + 7,
+                                                    n_active=n - 18)
+    p = params.clone().requires_grad_(True)
+    chunk = lml.composed_chunk(n)
+
+    def value_and_grad():
+        core = lml.lml_core(types, p, diagv, mask, x, ym)
+        core.sum().backward()
+        return core
+
+    _reset_counters()
+    _sync()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    core = value_and_grad()
+    _sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = _counters()
+    # a chunked core's backward recomputes each chunk's forward
+    n_chunks = -(-P // chunk)
+    want = (n_chunks if n_chunks == 1 else 2 * n_chunks, n_chunks)
+    check((launches["K4"], launches["K5"]) == want,
+          f"core n={n}: K4/K5 {launches['K4']}/{launches['K5']}, expected "
+          f"{want} for {n_chunks} chunks of {chunk}")
+    check(bool(torch.isfinite(core).sum() > P // 2)
+          and bool(torch.isfinite(p.grad).all()),
+          f"core n={n}: values or gradients not finite")
+    budget = min(P, chunk) * lml._ROW_MATRICES * n * n * 4
+    check(peak <= budget and peak <= lml._CHUNK_BYTES,
+          f"core n={n}: peak {peak} B over the budget {budget} B")
+    ms = _burst_ms(value_and_grad, 0, 2)
+    log(f"composed core P={P} n={n}: {ms:.1f} ms value + gradient, "
+        f"{chunk} particles a chunk ({n_chunks} calls), peak {peak} B "
+        f"({peak / (min(P, chunk) * n * n * 4):.2f} planes a particle; "
+        f"budget {budget} B)")
+    del p, core
+    torch.cuda.empty_cache()
+    return {"P": P, "n": n, "chunk": chunk, "calls": n_chunks, "ms": ms,
+            "peak_bytes": peak, "budget_bytes": budget,
+            "planes_per_particle": peak / (min(P, chunk) * n * n * 4),
+            "launches": launches}
+
+
+def _daily_long(ngp, seed=2, n_train=2190, horizon=28, draws=2000,
+                n_particles=32):
+    """A reduced fit on a 2,190-day ``simulate_daily`` series at full
+    length (capacity 2,208: the composed core beyond 2048), then its
+    forecast; the log-CRPS is reported against ``tools/daily_bench.py``'s
+    0.12 gate, not gated here."""
+    import torch
+
+    dates, obs, data, fwd, inv = _daily_data(ngp, seed, n_train, horizon)
+    _reset_counters()
+    _sync()
+    t0 = time.time()
+    model = ngp.make_and_fit_model(
+        data, n_particles=n_particles, smc_data_proportion=0.125, n_mcmc=2,
+        n_hmc=2, seed=seed, config=ngp.GPConfig(max_depth=5), device=DEVICE)
+    _sync()
+    fit_s = time.time() - t0
+    fit_launches = _counters()
+    t0 = time.time()
+    fc = ngp.forecast(model, dates[n_train:], draws, inv_transformation=inv)
+    _sync()
+    forecast_s = time.time() - t0
+    launches = _counters()
+    check(model._cap == 2208, f"daily long capacity {model._cap}")
+    check(fc.shape == (horizon, draws)
+          and bool(np.all(np.isfinite(fc)) and np.all(fc >= 0)),
+          "daily long: bad forecast")
+    for k in ("K1", "K2", "K3", "K4", "K5"):
+        check(fit_launches[k] > 0, f"daily long: {k} was not launched")
+    crps = float(ngp.crps_matrix(np.log(np.maximum(fc, 1e-9)),
+                                 np.log(obs[n_train:])).mean())
+    classes = _class_histogram(torch.as_tensor(model._host_types))
+    log(f"daily long ({n_train} days, capacity {model._cap}): fit "
+        f"{fit_s:.3f} s, forecast {forecast_s:.3f} s, log-CRPS {crps:.5f} "
+        f"(tools/daily_bench.py gates 0.12; not gated here), classes "
+        f"{classes}")
+    return {"fit_s": fit_s, "forecast_s": forecast_s, "log_crps": crps,
+            "capacity": int(model._cap), "fit_classes": classes,
+            "fit_launches": fit_launches, "launches": launches,
+            "flops": _fit_cost(ngp, model, n_train, 0.125, 2, 2, fit_s)}
+
+
+def _every_card_kernels():
+    """Every kernel launched on every visible card (under
+    ``torch.cuda.device``, as a mesh shard runs) and held bitwise to its
+    result on cuda:0: the kernels that take more than 48 KB of dynamic
+    shared memory set its limit on each card (K1, K2, K3, K6a, K6b, K5's
+    class-31 launch).  Returns the cards checked."""
+    import torch
+
+    from nowcastautogp_tpu_torch.ops import chol, chol_mxu, cov, megacov
+    from nowcastautogp_tpu_torch.ops import megalml
+
+    def kernels(args160, args576):
+        types, params, diagv, mask, x, ym = args160
+        K = megacov.megacov_fwd(types, params, x)
+        A = (K * (mask[:, :, None] * mask[:, None, :])
+             + torch.diag_embed(diagv)).contiguous()
+        L, alpha = chol.chol_solve_batched(A, ym)
+        x1 = x[0].contiguous()
+        t5, p5, d5, m5, x5, _ = args576
+        K5 = megacov.megacov_fwd(t5, p5, x5)
+        A5 = (K5 * (m5[:, :, None] * m5[:, None, :])
+              + torch.diag_embed(d5)).contiguous()
+        return [megalml.megalml_val(*args160),
+                *megalml.megalml_vag(*args160), L, alpha,
+                chol.tri_inverse(L), cov.cov_fwd(types, params, x1, x1),
+                cov.cov_bwd(types, params, x1, x1, K), K5,
+                megacov.megacov_bwd(t5, p5, x5, K5), chol_mxu.tri_inv(A5)]
+
+    a160 = _population(200, 160, seed=31)
+    a576 = _population_of(FITTED_DAILY_CLASSES, 576, 5)
+    ref = kernels(a160, a576)
+    cards = list(range(1, torch.cuda.device_count()))
+    for d in cards:
+        dev = torch.device("cuda", d)
+        with torch.cuda.device(dev):
+            got = kernels(*(tuple(a.to(dev) for a in args)
+                            for args in (a160, a576)))
+            torch.cuda.synchronize()
+        for i, (g, r) in enumerate(zip(got, ref)):
+            check(torch.equal(g.cpu(), r.cpu()),
+                  f"cuda:{d}: kernel output {i} differs from cuda:0's")
+    log(f"every kernel on cards {[0] + cards} bitwise cuda:0's")
+    return [0] + cards
+
+
+def mesh_and_large_n(wk_ctx, panel_median):
+    """Phase 8: the mesh, the LML beyond 2,048 points, and the flops.
+
+    * Every kernel on every visible card, bitwise cuda:0's (the shared
+      memory limit is set per card).  Phase 7's panel under
+      ``make_mesh()`` (every visible card: one on a one-card machine, the
+      unsharded calls) and under a rehearsal mesh of 4 shards on cuda:0
+      (the sharded code, the shards in turn); where
+      several cards are visible ``make_mesh()`` takes them all.  K1/K2 = shards x 3,650 /
+      10, every series under 0.2, the median within 0.02 of phase 7's.
+      ``lml_rows_sharded`` bitwise ``gp_lml_batched`` under each mesh.
+      Then ``forecast_with_nowcasts(mesh=)`` with the ``n_hmc=1`` refresh
+      on phase 3's model at S = 100 under each mesh.
+    * K4/K5 at n = 2,208 and 4,096 against their float64 plain versions,
+      timed at P = 200; the composed core's value and gradient at P = 200,
+      n = 2,208 (one chunk) and n = 4,096 (the budget binds: 64 a chunk),
+      with their peaks; a 2,190-day daily fit of 32 particles.
+    """
+    import nowcastautogp_tpu_torch as ngp
+
+    out = _mesh_part(ngp, wk_ctx, panel_median)
+    out["k45_err"], out["k45_ms"], out["k45_bounds"] = _k45_beyond_2048()
+    out["core"] = {f"n{n}": _core_beyond_2048(n) for n in (2208, 4096)}
+    out["daily_long"] = _daily_long(ngp)
+    return out
+
+
+def _mesh_part(ngp, wk_ctx, panel_median):
+    """Phase 8's mesh half (``mesh_and_large_n``)."""
+    import torch
+
+    from nowcastautogp_tpu_torch.parallel.sharding import Mesh
+
+    meshes = [("make_mesh()", ngp.make_mesh()),
+              ("rehearsal 4 x cuda:0", Mesh(["cuda:0"] * 4))]
+    log(f"mesh: {torch.cuda.device_count()} card(s) visible; meshes "
+        f"{[str(m) for _, m in meshes]}")
+    out = {"cards_visible": torch.cuda.device_count(), "panel": {},
+           "nowcast": {}, "kernels_on_cards": _every_card_kernels()}
+    for label, mesh in meshes:
+        res = _mesh_panel(ngp, mesh, label)
+        check(abs(res["log_crps_median"] - panel_median) <= 0.02,
+              f"mesh panel ({label}): median {res['log_crps_median']:.5f} "
+              f"against phase 7's {panel_median:.5f}")
+        res["lml_bitwise"] = _sharded_lml_bitwise(ngp, mesh)
+        out["panel"][label] = res
+        out["nowcast"][label] = _mesh_nowcast(ngp, wk_ctx, mesh, label)
+    out["cards_used"] = max(r["cards"] for r in out["panel"].values())
+    log(f"mesh: cards used {out['cards_used']}")
+    return out
+
+
 def main():
     import torch
 
@@ -1744,8 +2072,16 @@ def main():
     t0 = time.time()
     pn = panel_and_workflow(wk_ctx)
     phases["panel"] = time.time() - t0
-    del wk_ctx
     log(f"panel and workflow: {json.dumps(pn)}")
+    t0 = time.time()
+    m8 = mesh_and_large_n(wk_ctx, pn["panel"]["log_crps_median"])
+    phases["mesh_large_n"] = time.time() - t0
+    del wk_ctx
+    log(f"mesh and beyond 2048: {json.dumps(m8)}")
+    ms.update(m8["k45_ms"])
+    bounds.update(m8["k45_bounds"])
+    for k in ("K4", "K5"):
+        err[k] = max(err[k], m8["k45_err"][k])
     log(f"device-engine weekly fit {nc['device_engine']['fit_s']:.3f} s, "
         f"host-engine {wk['fit_s']:.3f} s")
     log(f"phase seconds: {json.dumps(phases)}")
@@ -1782,8 +2118,8 @@ def main():
              for k, kind in (("K1", "vag"), ("K2", "val"))}
     # each kernel's other shapes: ms (device clock), host_ms, bound_ms
     shapes = {"K1": ("n512",), "K2": ("n512",),
-              "K4": ("daily", "n160", "n2048"),
-              "K5": ("daily", "n160", "n2048"),
+              "K4": ("daily", "n160", "n2048", "n2208", "n4096"),
+              "K5": ("daily", "n160", "n2048", "n2208", "n4096"),
               "K7F": ("n160_m8", "n8_m8", "n512"),
               "K7B": ("n512", "fitted")}
     for k, tags in shapes.items():
@@ -1803,7 +2139,12 @@ def main():
                           "chunked")),
                    "panel": pn["panel"]["launches"][k],
                    "acceptance": pn["acceptance"]["launches"][k],
-                   "workflow": pn["tools"]["launches"][k]}
+                   "workflow": pn["tools"]["launches"][k],
+                   "mesh": sum(r["launches"][k] for part in ("panel",
+                                                              "nowcast")
+                               for r in m8[part].values()),
+                   "beyond_2048": m8["daily_long"]["launches"][k]
+                   + sum(c["launches"][k] for c in m8["core"].values())}
         kernels.append({
             "name": f"{k} {name}", "route": "cuda", "source": csrc + src,
             "replaces": tpu + tpu_src, "launches": sum(by_path.values()),
@@ -1814,7 +2155,8 @@ def main():
             "library_ms": ms[lib] if lib else None, **extra.get(k, {})})
     print(json.dumps({"phase_s": phases, "kernel_ms": ms,
                       "bounds_ms": bounds, "weekly": wk, "daily": dy,
-                      "pallas": pw, "nowcast": nc, "panel": pn}))
+                      "pallas": pw, "nowcast": nc, "panel": pn,
+                      "mesh_large_n": m8}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,14 +5,15 @@ heap-encoded kernel trees, data-annealed SMC with host or device structure
 proposals and batched HMC, the forecaster (``forecast``, ``predict_mvn``,
 and the per-draw HMC refresh ``forecast_n_hmc``) and the nowcast forecast
 with its refresh branches; the multi-series panel (``fit_panel``,
-``forecast_panel``, ``panel_predict_mvn``, on one card); and the
+``forecast_panel``, ``panel_predict_mvn``), on one card or sharded over
+several (``make_mesh``, ``parallel/sharding.py``); and the
 workflow around them: CRPS/WIS scoring, hubverse quantile submissions,
 vintaged data, the five-approach acceptance comparison
 (``run_acceptance``), additive decomposition, checkpoints and phase
 timers.  The masked GP log marginal
 likelihood runs in hand-written CUDA kernels on an NVIDIA card (``csrc/``:
 by default the fused K1/K2 up to capacity 512 and the composed
-K4 -> K3 -> K5 path up to 2048; under the opt-in "pallas" LML and
+K4 -> K3 -> K5 path above, up to 4096; under the opt-in "pallas" LML and
 covariance backends, ``ops.lml.set_lml_backend`` and
 ``ops.cov.set_cov_backend``, the covariances K7F/K7B and the blocked
 Cholesky core K6a/K6b) and in their plain torch versions on the CPU.  Entry points run on the card unless the caller passes
@@ -43,6 +44,7 @@ from .models.gp_model import (
 from .models.posterior import MvNormalMixture
 from .nowcast import create_nowcast_data, forecast_with_nowcasts
 from .parallel.panel import fit_panel, forecast_panel, panel_predict_mvn
+from .parallel.sharding import make_mesh
 from .tdata import TData, create_transformed_data
 from .transforms import get_transformations
 from .utils.data import VintagedData, load_vintaged_csv
@@ -64,5 +66,5 @@ __all__ = [
     "FLUSIGHT_QUANTILES", "quantile_submission", "write_submission_csv",
     "phase_report", "reset_phases", "device_trace",
     "save_model", "load_model", "VintagedData", "load_vintaged_csv",
-    "fit_panel", "forecast_panel", "panel_predict_mvn",
+    "fit_panel", "forecast_panel", "panel_predict_mvn", "make_mesh",
 ]

@@ -115,7 +115,7 @@ bool n_supported(int n) { return n >= B && n <= MAX_N && n % B == 0; }
 extern "C" int chol_solve(int P, int n, const float* K, const float* ym,
                           float* L, float* alpha, float* dws, void* stream) {
   if (P <= 0 || !n_supported(n)) return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t attr = set_smem_limit(chol_solve_kernel, sizeof(Smem));
+  const cudaError_t attr = set_smem_limit(chol_solve_kernel, sizeof(Smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   chol_solve_kernel<<<P, THREADS, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
       n, K, ym, L, alpha, dws);
@@ -125,7 +125,7 @@ extern "C" int chol_solve(int P, int n, const float* K, const float* ym,
 extern "C" int chol_tri_inverse(int P, int n, const float* L, float* X,
                                 float* dws, void* stream) {
   if (P <= 0 || !n_supported(n)) return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t attr = set_smem_limit(tri_inverse_kernel, sizeof(Smem));
+  const cudaError_t attr = set_smem_limit(tri_inverse_kernel, sizeof(Smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   tri_inverse_kernel<<<P, THREADS, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
       n, L, X, dws);

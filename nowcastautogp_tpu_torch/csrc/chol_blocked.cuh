@@ -63,7 +63,9 @@ struct Smem {
   float z[B];                // this panel's block of L^-1 r
 };
 
-// Allows `kernel` the dynamic shared memory it asks for (once per kernel).
+// Allows `kernel` the dynamic shared memory it asks for on the current
+// device.  The attribute is per device, so a launcher sets it before every
+// launch (a call costs microseconds) rather than once per process.
 template <typename Kernel>
 cudaError_t set_smem_limit(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,

@@ -62,7 +62,7 @@ extern "C" int tri_inv(int P, int n, const float* A, float* X, float* ws,
                        float* dws, void* stream) {
   if (P <= 0 || n < B || n > MAX_N || n % B != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t attr = set_smem_limit(tri_inv_kernel, sizeof(Smem));
+  const cudaError_t attr = set_smem_limit(tri_inv_kernel, sizeof(Smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   tri_inv_kernel<<<P, THREADS, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
       n, A, X, ws, dws);

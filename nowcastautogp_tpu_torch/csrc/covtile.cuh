@@ -1,6 +1,6 @@
 // Symmetric, class-walked covariance tiles shared by the covariance kernels:
 // cov.cu (K7F/K7B, one tree's K(x1, x2), n, m <= 512) and megacov.cu (K4/K5,
-// K(x_p, x_p), n <= 2048).  Each source includes this header and
+// K(x_p, x_p), n <= 4096).  Each source includes this header and
 // instantiates what it launches; its own C entry points check its envelope.
 //
 // What bounds them.  The forward writes P n m floats, the VJP reads as many;
@@ -377,14 +377,14 @@ int launch_fwd(const CovArgs& a, float* K, cudaStream_t s) {
 
 // One VJP pass-1 launch for classes LO ... HI.  Classes above
 // REG_CLASS_MAX get their shared-memory columns, 3 HI THREADS floats; the
-// attribute is set once per instantiation.
+// attribute is set before every launch, since it is per device.
 template <int N, int LO, int HI>
 int launch_bwd_pass(const CovArgs& a, const float* dK, float* partial,
                     cudaStream_t s) {
   size_t smem = 0;
   if constexpr (HI > REG_CLASS_MAX) {
     smem = sizeof(float) * 3 * HI * THREADS;
-    static const cudaError_t attr = cudaFuncSetAttribute(
+    const cudaError_t attr = cudaFuncSetAttribute(
         cov_bwd_kernel<N, LO, HI>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (attr != cudaSuccess) return static_cast<int>(attr);

@@ -1,13 +1,18 @@
 // Batched covariance of heap-encoded kernel trees and its VJP, for Hopper
 // (sm_90a):
 //
-//   K4  megacov_fwd  K(x_p, x_p) for P heterogeneous trees, 8 <= n <= 2048
+//   K4  megacov_fwd  K(x_p, x_p) for P heterogeneous trees, 8 <= n <= 4096
 //       replaces nowcastautogp_tpu/ops/pallas_megacov.py::_cov_fwd_kernel
 //   K5  megacov_bwd  dK -> dparams by a recomputed walk
 //       replaces nowcastautogp_tpu/ops/pallas_megacov.py::_cov_bwd_kernel
 //
 // They carry the composed LML path (capacities above K1/K2's 512) and the
-// K(x, x) plane of the predictive and the nowcast.
+// K(x, x) plane of the predictive and the nowcast.  The envelope ends at
+// n = 4096 (11 years of days): 8,256 lower tiles a particle in gridDim.x,
+// P <= 65,535 in gridDim.y, every offset into K, dK and partial a size_t
+// (covtile.cuh), and K5's partial P x tiles x 3 N floats (614 MB at
+// P = 200, N = 31).  The JAX package ends its kernel at 2048 and runs its
+// interpreter beyond; the port runs the same tiles there.
 //
 // They are the symmetric path of covtile.cuh's kernels, the ones K7F/K7B
 // run, with per-particle points x (row stride n): lower 32 x 32 tiles only,
@@ -28,7 +33,7 @@
 
 namespace {
 
-constexpr int MAX_N = 2048;
+constexpr int MAX_N = 4096;
 
 bool shape_ok(int P, int n) {
   return P > 0 && P <= 65535 && n >= 8 && n <= MAX_N && n % 8 == 0;

@@ -322,7 +322,7 @@ int launch_val(int P, int n, const int* types, const float* params,
                const float* diagv, const float* mask, const float* x,
                const float* ym, float* core, float* ws, float* dws,
                cudaStream_t s) {
-  static const cudaError_t attr =
+  const cudaError_t attr =
       cholblk::set_smem_limit(megalml_val_kernel<N>, sizeof(LmlSmem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   megalml_val_kernel<N><<<P, THREADS, sizeof(LmlSmem), s>>>(
@@ -336,7 +336,7 @@ int launch_vag(int P, int n, const int* types, const float* params,
                const float* ym, float* core, float* dparams, float* gdiag,
                float* alpha, float* ws1, float* ws2, float* dws,
                double* partial, cudaStream_t s) {
-  static const cudaError_t attr =
+  const cudaError_t attr =
       cholblk::set_smem_limit(megalml_vag_kernel<N>, sizeof(LmlSmem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   megalml_vag_kernel<N><<<P, THREADS, sizeof(LmlSmem), s>>>(

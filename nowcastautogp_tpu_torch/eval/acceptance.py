@@ -129,7 +129,7 @@ def fit_on_data_panel(vintage: VintagedData, report_dates, *,
                       n_particles: int = 24,
                       smc_data_proportion: float = 0.1, n_mcmc: int = 50,
                       n_hmc: int = 50, seed: int | None = None,
-                      **fit_kwargs) -> list[dict]:
+                      mesh=None, **fit_kwargs) -> list[dict]:
     """All report dates' fits as ONE panel program.
 
     The reference maps over report dates serially
@@ -141,7 +141,8 @@ def fit_on_data_panel(vintage: VintagedData, report_dates, *,
     ``n_dates`` sequential ones.  Statistically each date still gets an
     independently initialized ensemble annealed on its own data.
 
-    Returns the same per-date ``fitted`` dicts as :func:`fit_on_data`.
+    ``mesh`` shards the panel's rows (``fit_panel``).  Returns the same
+    per-date ``fitted`` dicts as :func:`fit_on_data`.
     """
     from ..parallel.panel import fit_panel
 
@@ -150,7 +151,7 @@ def fit_on_data_panel(vintage: VintagedData, report_dates, *,
     models = fit_panel(
         [p["data"] for p in prepared], n_particles=n_particles,
         smc_data_proportion=smc_data_proportion, n_mcmc=n_mcmc,
-        n_hmc=n_hmc, seed=seed, **fit_kwargs)
+        n_hmc=n_hmc, seed=seed, mesh=mesh, **fit_kwargs)
     out = []
     for p, model in zip(prepared, models):
         p.pop("data")
@@ -233,7 +234,7 @@ def run_acceptance(vintage: VintagedData | None = None, *,
                    n_nowcast_samples: int = 100, max_horizon: int = 4,
                    log_mean: float = 0.1, log_sd: float = 0.027,
                    seed: int = 0, verbose: bool = False, panel: bool = True,
-                   **fit_kwargs):
+                   mesh=None, **fit_kwargs):
     """Run the five-approach CRPS comparison; returns a results dict.
 
     ``fit_kwargs`` override the canonical budgets (n_particles=24,
@@ -243,6 +244,7 @@ def run_acceptance(vintage: VintagedData | None = None, *,
     ``panel=True`` (default) fits ALL report dates as one flattened
     ``n_dates x n_particles`` SMC program (:func:`fit_on_data_panel`);
     ``panel=False`` keeps the reference-shaped serial per-date fits.
+    ``mesh`` shards the panel fit's rows (serial fits ignore it).
 
     Result: {"scores": {approach: mean CRPS}, "ratios": {approach: score /
     nowcast_hmc score}, "per_report": {...}} — ratios mirror the vignette's
@@ -265,7 +267,7 @@ def run_acceptance(vintage: VintagedData | None = None, *,
     per_report_wis: dict[str, list[float]] = {a: [] for a in APPROACHES}
     if panel and len(report_dates) > 1:
         fitted_all = fit_on_data_panel(
-            vintage, report_dates, seed=seed + 1000, **fit_kwargs)
+            vintage, report_dates, seed=seed + 1000, mesh=mesh, **fit_kwargs)
     else:
         fitted_all = None
     for i, rd in enumerate(report_dates):

@@ -6,7 +6,9 @@ and birth/death) are irregular and run on the host in numpy for all
 particles at once, drawing from the same ``numpy.random.Generator`` stream as
 the JAX package.  One batched call then evaluates every proposal's masked
 LML (K2 on the card), applies the MH accept, selects the surviving trees and
-params, and runs ``n_hmc`` HMC trajectories on the winners.
+params, and runs ``n_hmc`` HMC trajectories on the winners.  With a mesh of
+several shards each move runs one body a shard
+(``parallel/sharding.py::structure_move_sharded``).
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ def _structure_move_body(
 ):
     """Proposal LML -> MH accept -> select -> HMC, for all particles.
 
-    Returns (accept, params, log_noise, lml, eps_scale).
+    Returns (accept, types, params, log_noise, lml, hmc accept rate (P,),
+    eps_scale).
     """
     P = params_old.shape[0]
     with torch.no_grad():
@@ -80,30 +83,40 @@ def _structure_move_body(
     mu, sigma, active = (torch.where(a3, new, old)
                          for new, old in zip(pri_prop, pri_old))
     lml = torch.where(accept, lml_prop, lml_old)
+    rate = torch.zeros(P, dtype=params.dtype, device=params.device)
     if n_hmc > 0:
-        params, log_noise, lml, _, eps_scale, _ = run_hmc(
+        params, log_noise, lml, rate, eps_scale, _ = run_hmc(
             types, params, log_noise, mu, sigma, active, x, y, mask, gen,
             n_steps=n_hmc, n_leapfrog=n_leapfrog, step_size=step_size,
             step_jitter=step_jitter, jitter=jitter, noise_mu=noise_mu,
             noise_sigma=noise_sigma, infer_noise=infer_noise,
             eps_scale=eps_scale,
         )
-    return accept, params, log_noise, lml, eps_scale
+    return accept, types, params, log_noise, lml, rate, eps_scale
 
 
 def mcmc_structure_sweep(
     rng, gen, host_types, params, log_noise, lml, x, y, mask,
     config: GPConfig, n_mcmc: int, n_hmc: int, hmc_cfg, jitter,
-    noise_mu, noise_sigma, infer_noise, eps_scale,
+    noise_mu, noise_sigma, infer_noise, eps_scale, mesh=None,
 ):
     """Run ``n_mcmc`` structure moves, each followed by ``n_hmc`` HMC
     trajectories.
 
     ``host_types`` is the host-side numpy mirror of the trees (the host owns
-    structure state so it can build the next proposal).  Returns
+    structure state so it can build the next proposal).  ``mesh``: a mesh
+    of more than one shard runs each move through
+    ``structure_move_sharded``, one body a shard.  Returns
     ``(host_types, params, log_noise, lml, mean accept rate, eps_scale)``.
     """
     dev = params.device
+    if mesh is not None and mesh.size > 1:
+        from ..parallel.sharding import structure_move_sharded
+
+        def move(*args, **kw):
+            return structure_move_sharded(*args, mesh=mesh, **kw)
+    else:
+        move = _structure_move_body
 
     def on_dev(a, dtype=torch.float32):
         return torch.as_tensor(a, dtype=dtype, device=dev)
@@ -113,7 +126,7 @@ def mcmc_structure_sweep(
     for _ in range(n_mcmc):
         types_prop, params_prop, log_h, pri_prop = propose_batch(
             rng, host_types, params.cpu().numpy(), config)
-        accept, params, log_noise, lml, eps_scale = _structure_move_body(
+        accept, _, params, log_noise, lml, _, eps_scale = move(
             on_dev(host_types, torch.int32), on_dev(types_prop, torch.int32),
             params, on_dev(params_prop),
             tuple(map(on_dev, pri_old)), tuple(map(on_dev, pri_prop)),

@@ -17,7 +17,10 @@ it, by one of three branches, chosen as the reference chooses them:
   the batched branch.  The ensemble is tiled to R = S x P rows with
   per-row data buffers, and the reweight, the per-scenario ESS resample,
   the HMC or device-proposal refresh and the draws are batched calls over
-  all rows (in chunks of scenarios, ``_scenario_chunk``).
+  all rows (in chunks of scenarios, ``_scenario_chunk``).  With a ``Mesh``
+  of several shards (``parallel/sharding.py``) each chunk's scenarios are
+  padded to a mesh multiple and its reweight LMLs, refresh and per-draw
+  HMC scan run one body a shard; the other branches ignore the mesh.
 
 The output contract is the reference's: a ``(n_dates, n_scenarios *
 draws_per_nowcast)`` matrix with columns grouped by scenario, and the base
@@ -31,6 +34,7 @@ from __future__ import annotations
 import copy
 import hashlib
 import logging
+import math
 
 import numpy as np
 import torch
@@ -49,10 +53,14 @@ from .models.structures_device import ancestor_table, config_arrays
 from .ops.cov import cov_fn
 from .ops.forecast_scan import nowcast_forecast_hmc_scan
 from .ops.lml import (
-    DEFAULT_JITTER, LOG_2PI, gp_lml_batched, gp_predict_batch,
-    masked_kernel_matrix, sampling_cholesky,
+    _CHUNK_BYTES, _ROW_MATRICES, DEFAULT_JITTER, LOG_2PI, gp_lml_batched,
+    gp_predict_batch, masked_kernel_matrix, sampling_cholesky,
 )
 from .ops.megalml import cholesky_nan
+from .parallel.sharding import (
+    forecast_hmc_scan_sharded, lml_rows_sharded, rejuvenation_sweep_sharded,
+    run_hmc_sharded,
+)
 from .tdata import create_transformed_data
 from .utils.apply import apply_elementwise
 from .utils.dates import as_date_array, dates_to_float
@@ -61,15 +69,12 @@ __all__ = ["create_nowcast_data", "forecast_with_nowcasts"]
 
 logger = logging.getLogger("nowcastautogp_tpu_torch")
 
-# Scenario chunking of the batched branch.  Each of the S x P rows holds a
-# few (cap, cap) float32 matrices at once on the card: K1's two workspaces,
-# K2's one, the composed core's A, A^-1 and its cotangent above capacity
-# 512.  A row is budgeted at 8 such matrices and a chunk at 32 GiB of the
-# H100's 80 GB.  chip_smoke.py's phase 6 measures the peak where the budget
-# binds (capacity 576, 16 scenarios of 200 rows a chunk): 5.07 matrices a
-# row, 21.5 GB, on an NVIDIA H100 80GB HBM3 at 700 W.
-_ROW_MATRICES = 8
-_CHUNK_BYTES = 32 * 2**30
+# Scenario chunking of the batched branch: each of the S x P rows holds a
+# few (cap, cap) float32 matrices at once on the card, budgeted as the
+# composed LML core budgets its particles (ops/lml.py).  chip_smoke.py's
+# phase 6 measures the peak where the budget binds (capacity 576, 16
+# scenarios of 200 rows a chunk): 5.07 matrices a row, 21.5 GB, on an
+# NVIDIA H100 80GB HBM3 at 700 W.
 
 
 def create_nowcast_data(nowcasts, dates, *, transformation=lambda y: y):
@@ -148,7 +153,7 @@ def forecast_with_nowcasts(
     forecast_draws_per_nowcast: int, *, inv_transformation=lambda y: y,
     n_mcmc: int = 0, n_hmc: int = 0, ess_threshold: float = 0.0,
     forecast_n_hmc: int | None = None, verbose: bool = False,
-    draw_seed: int | None = None,
+    draw_seed: int | None = None, mesh=None,
 ) -> np.ndarray:
     """Forecast conditioned on each nowcast scenario; concat scenario blocks.
 
@@ -157,7 +162,10 @@ def forecast_with_nowcasts(
     ensemble); ``forecast_n_hmc`` (if given) must be positive and refreshes
     the hyperparameters before every draw.  The branch follows the
     module docstring; on the shared-Cholesky branch ``ess_threshold`` has no
-    effect on the sampled mixture.  The work runs on ``base_model.device``.
+    effect on the sampled mixture.  The work runs on ``base_model.device``;
+    ``mesh`` (a ``parallel.sharding.Mesh``) shards the batched branch's
+    scenario x particle rows, one body a shard, and the other branches run
+    on ``base_model.device`` as without it.
     """
     nowcasts = list(nowcasts)
     if len(nowcasts) == 0:
@@ -178,43 +186,64 @@ def forecast_with_nowcasts(
         return _forecast_with_nowcasts_serial(
             base_model, nowcasts, forecast_dates, D, **kw)
     if n_mcmc == 0 and n_hmc == 0 and forecast_n_hmc is None:
+        if mesh is not None and mesh.size > 1:
+            logger.info(
+                "no-refresh nowcast path runs on one device (per-particle "
+                "shared Cholesky is ~%d-fold cheaper than the shardable "
+                "row-flattened form)", len(nowcasts))
         return _forecast_with_nowcasts_shared_chol(
             base_model, nowcasts, forecast_dates, D,
             inv_transformation=inv_transformation, verbose=verbose,
             draw_seed=draw_seed,
         )
     S = len(nowcasts)
-    chunk = _scenario_chunk(base_model, nowcasts)
+    n_dev = mesh.size if mesh is not None else 1
+    kw["mesh"] = mesh if n_dev > 1 else None
+    chunk = _scenario_chunk(base_model, nowcasts, kw["mesh"])
     blocks = []
     for lo in range(0, S, chunk):
-        blocks.append(_forecast_with_nowcasts_batched(
-            base_model, nowcasts[lo:lo + chunk], forecast_dates, D, **kw))
+        part = nowcasts[lo:lo + chunk]
+        n_real = len(part)
+        # a mesh needs the scenarios to divide it: pad with the last one,
+        # trim its columns after
+        part = part + [part[-1]] * (-n_real % n_dev)
+        block = _forecast_with_nowcasts_batched(
+            base_model, part, forecast_dates, D, **kw)
+        blocks.append(block[:, :n_real * D])
         if verbose and chunk < S:
-            logger.info("nowcast chunk %d-%d/%d done", lo,
-                        min(lo + chunk, S), S)
+            logger.info("nowcast chunk %d-%d/%d done", lo, lo + n_real, S)
     return np.concatenate(blocks, axis=1)
 
 
-def _scenario_chunk(base_model, nowcasts) -> int:
+def _scenario_chunk(base_model, nowcasts, mesh=None) -> int:
     """Scenarios per batched call: as many as ``_CHUNK_BYTES`` holds at
-    ``_ROW_MATRICES`` (cap, cap) float32 matrices per row.  Unlike the JAX
-    package, the last chunk is not padded to the others' shape: nothing is
-    compiled per shape here."""
+    ``_ROW_MATRICES`` (cap, cap) float32 matrices per row on one device
+    (with a mesh, the rows a device holds), a mesh multiple with a mesh.
+    Unlike the JAX package, a chunk is padded only to divide the mesh:
+    nothing is compiled per shape here."""
     cap = _scenario_cap(base_model, nowcasts[0].ds)
     per_scenario = base_model.num_particles * _ROW_MATRICES * cap * cap * 4
-    return int(np.clip(_CHUNK_BYTES // per_scenario, 1, len(nowcasts)))
+    S = len(nowcasts)
+    if mesh is None:
+        return int(np.clip(_CHUNK_BYTES // per_scenario, 1, S))
+    n_dev = mesh.size
+    fit = int(_CHUNK_BYTES // per_scenario / mesh.device_share())
+    return min(max(n_dev, fit // n_dev * n_dev), math.ceil(S / n_dev) * n_dev)
 
 
 def _forecast_with_nowcasts_serial(
     base_model, nowcasts, forecast_dates, draws_per_nowcast, *,
     inv_transformation, n_mcmc, n_hmc, ess_threshold, forecast_n_hmc, verbose,
-    draw_seed=None,
+    draw_seed=None, mesh=None,
 ):
     """General branch: an independent model copy per scenario.
 
     Each copy gets fresh generators derived by hashing, not advancing, the
     base state (the restored state would replay one stream in every copy).
+    The scenarios' date axes differ, so there is no shared row shape to
+    shard: ``mesh`` is ignored.
     """
+    del mesh
     base_dict = base_model.to_dict()
     blocks = []
     for i, nc in enumerate(nowcasts):
@@ -396,7 +425,7 @@ def _resample_rows(rng, log_w, S, P, ess_threshold):
 def _forecast_with_nowcasts_batched(
     base_model, nowcasts, forecast_dates, draws_per_nowcast, *,
     inv_transformation, n_mcmc, n_hmc, ess_threshold, forecast_n_hmc, verbose,
-    draw_seed=None,
+    draw_seed=None, mesh=None,
 ):
     """Batched branch: the flattened scenario x particle rows on the device.
 
@@ -405,7 +434,10 @@ def _forecast_with_nowcasts_batched(
     over all S x P rows: the old and new LMLs of the reweight, one gather
     for the resample, the refresh (``run_hmc`` for ``n_hmc`` alone, the
     device-proposal ``rejuvenation_sweep`` for ``n_mcmc > 0``) and the
-    draws (``nowcast_forecast_hmc_scan`` with ``forecast_n_hmc``).
+    draws (``nowcast_forecast_hmc_scan`` with ``forecast_n_hmc``).  With
+    ``mesh`` (the caller pads S to a mesh multiple) the LMLs, the refresh
+    and the scan run one body a shard (``parallel/sharding.py``); the
+    resample and the predictive build stay on the base model's device.
     """
     S = len(nowcasts)
     P = base_model.num_particles
@@ -432,10 +464,16 @@ def _forecast_with_nowcasts_batched(
     # the cached LML may be on a different (shuffled) buffer: both sides of
     # the add_data delta are evaluated on this one
     with torch.no_grad():
-        lml_old = gp_lml_batched(types_d, params, log_noise, x_b, y_b, m_old,
-                                 DEFAULT_JITTER)
-        lml = gp_lml_batched(types_d, params, log_noise, x_b, y_b, m_new,
-                             DEFAULT_JITTER)
+        if mesh is not None:
+            lml_old = lml_rows_sharded(types_d, params, log_noise, x_b, y_b,
+                                       m_old, mesh=mesh)
+            lml = lml_rows_sharded(types_d, params, log_noise, x_b, y_b,
+                                   m_new, mesh=mesh)
+        else:
+            lml_old = gp_lml_batched(types_d, params, log_noise, x_b, y_b,
+                                     m_old, DEFAULT_JITTER)
+            lml = gp_lml_batched(types_d, params, log_noise, x_b, y_b,
+                                 m_new, DEFAULT_JITTER)
     log_w = np.tile(base_model.log_weight, S) + _reweight_delta(
         lml_old.cpu().numpy().astype(np.float64),
         lml.cpu().numpy().astype(np.float64))
@@ -458,20 +496,33 @@ def _forecast_with_nowcasts_batched(
                   noise_mu=noise_mu, noise_sigma=noise_sigma,
                   infer_noise=infer)
     if n_mcmc > 0:
-        types_d, params, log_noise, lml, _, eps_scale = rejuvenation_sweep(
-            types_d, params, log_noise, lml, x_b, y_b, m_new, gen,
-            config_arrays(base_model.config, dev),
-            torch.as_tensor(ancestor_table(base_model.config.max_nodes),
-                            device=dev),
-            n_mcmc=int(n_mcmc), n_hmc=int(n_hmc), eps_scale=eps_scale,
-            **hmc_kw)
+        cfg = config_arrays(base_model.config, dev)
+        anc = torch.as_tensor(ancestor_table(base_model.config.max_nodes),
+                              device=dev)
+        if mesh is not None:
+            types_d, params, log_noise, lml, _, eps_scale = (
+                rejuvenation_sweep_sharded(
+                    types_d, params, log_noise, lml, x_b, y_b, m_new, gen,
+                    eps_scale, cfg, anc, mesh=mesh, n_mcmc=int(n_mcmc),
+                    n_hmc=int(n_hmc), **hmc_kw))
+        else:
+            types_d, params, log_noise, lml, _, eps_scale = (
+                rejuvenation_sweep(
+                    types_d, params, log_noise, lml, x_b, y_b, m_new, gen,
+                    cfg, anc, n_mcmc=int(n_mcmc), n_hmc=int(n_hmc),
+                    eps_scale=eps_scale, **hmc_kw))
         host_types = types_d.cpu().numpy()
     elif n_hmc > 0:
         mu, sg, act = (t(a) for a in prior_arrays(host_types,
                                                   base_model.config))
-        params, log_noise, lml, _, eps_scale, _ = run_hmc(
-            types_d, params, log_noise, mu, sg, act, x_b, y_b, m_new, gen,
-            n_steps=int(n_hmc), eps_scale=eps_scale, **hmc_kw)
+        if mesh is not None:
+            params, log_noise, lml, _, eps_scale = run_hmc_sharded(
+                types_d, params, log_noise, mu, sg, act, x_b, y_b, m_new,
+                gen, eps_scale, mesh=mesh, n_steps=int(n_hmc), **hmc_kw)
+        else:
+            params, log_noise, lml, _, eps_scale, _ = run_hmc(
+                types_d, params, log_noise, mu, sg, act, x_b, y_b, m_new,
+                gen, n_steps=int(n_hmc), eps_scale=eps_scale, **hmc_kw)
 
     xs = t(base_model._normalize_dates(list(forecast_dates)))
     logw_d = t(log_w.reshape(S, P) - log_w.reshape(S, P).max(1, keepdims=True))
@@ -495,10 +546,16 @@ def _forecast_with_nowcasts_batched(
     else:
         mu_pr, sg_pr, act_pr = (t(a) for a in prior_arrays(
             host_types, base_model.config))
-        samples, *_ = nowcast_forecast_hmc_scan(
-            types_d, params, log_noise, mu_pr, sg_pr, act_pr, x_b, y_b,
-            m_new, xs, logw_d, gen, eps_scale, n_scenarios=S, n_draws=D,
-            n_hmc=int(forecast_n_hmc), **hmc_kw)
+        scan_kw = dict(n_scenarios=S, n_draws=D, n_hmc=int(forecast_n_hmc),
+                       **hmc_kw)
+        if mesh is not None:
+            samples, *_ = forecast_hmc_scan_sharded(
+                types_d, params, log_noise, mu_pr, sg_pr, act_pr, x_b, y_b,
+                m_new, xs, logw_d, gen, eps_scale, mesh=mesh, **scan_kw)
+        else:
+            samples, *_ = nowcast_forecast_hmc_scan(
+                types_d, params, log_noise, mu_pr, sg_pr, act_pr, x_b, y_b,
+                m_new, xs, logw_d, gen, eps_scale, **scan_kw)
     out = samples.cpu().numpy().astype(np.float64)
     out = base_model._y_mean + base_model._y_std * out
     if verbose:

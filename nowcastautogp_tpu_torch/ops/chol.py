@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from .cudalib import library, raise_on
+from .cudalib import LaunchCounter, library, raise_on
 from .megalml import cholesky_nan
 
 __all__ = [
@@ -36,9 +36,9 @@ __all__ = [
     "K6A_LAUNCHES", "K6B_LAUNCHES", "reset_launch_counts",
 ]
 
-# Launches of K6a and K6b, counted where each wrapper launches its kernel.
-K6A_LAUNCHES = 0
-K6B_LAUNCHES = 0
+# Launches of K6a and K6b, counted where each wrapper launches its kernel;
+# read as K6A_LAUNCHES and K6B_LAUNCHES.
+_LAUNCHES = LaunchCounter("K6A_LAUNCHES", "K6B_LAUNCHES")
 
 _B = 32
 _MAX_N = 2048
@@ -46,9 +46,7 @@ _MAX_N = 2048
 
 def reset_launch_counts() -> None:
     """Set both launch counters to zero."""
-    global K6A_LAUNCHES, K6B_LAUNCHES
-    K6A_LAUNCHES = 0
-    K6B_LAUNCHES = 0
+    _LAUNCHES.reset()
 
 
 def chol_solve_plain(K, ym):
@@ -92,7 +90,6 @@ def _check(M, which, vec=None):
 
 def chol_solve_batched(K, ym):
     """K6a: (L (P, n, n) lower, alpha (P, n)) with L L^T = K, K alpha = ym."""
-    global K6A_LAUNCHES
     P, n, dev = _check(K, "K6a chol_solve", ym)
     if dev == "cpu":
         return chol_solve_plain(K, ym)
@@ -103,13 +100,12 @@ def chol_solve_batched(K, ym):
         P, n, K.data_ptr(), ym.data_ptr(), L.data_ptr(), alpha.data_ptr(),
         dws.data_ptr(), torch.cuda.current_stream(K.device).cuda_stream)
     raise_on(rc, "K6a chol_solve")
-    K6A_LAUNCHES += 1
+    _LAUNCHES.bump("K6A_LAUNCHES")
     return L, alpha
 
 
 def tri_inverse(L):
     """K6b: X = L^-1 (P, n, n) lower from a lower Cholesky factor L."""
-    global K6B_LAUNCHES
     P, n, dev = _check(L, "K6b tri_inverse")
     if dev == "cpu":
         return tri_inverse_plain(L)
@@ -119,7 +115,7 @@ def tri_inverse(L):
         P, n, L.data_ptr(), X.data_ptr(), dws.data_ptr(),
         torch.cuda.current_stream(L.device).cuda_stream)
     raise_on(rc, "K6b tri_inverse")
-    K6B_LAUNCHES += 1
+    _LAUNCHES.bump("K6B_LAUNCHES")
     return X
 
 
@@ -157,3 +153,9 @@ class CholCoreFn(torch.autograd.Function):
 def lml_core(K, ym):
     """Batched ``-0.5 (ym^T K^-1 ym + logdet K)`` through K6a/K6b."""
     return CholCoreFn.apply(K.contiguous(), ym.contiguous())
+
+
+def __getattr__(name):
+    if name in _LAUNCHES:
+        return _LAUNCHES[name]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -13,14 +13,15 @@ from __future__ import annotations
 
 import torch
 
-from .cudalib import library, raise_on
+from .cudalib import LaunchCounter, library, raise_on
 from .megalml import cholesky_nan
 
 __all__ = ["tri_inv", "tri_inv_plain", "mxu_supported", "K3_LAUNCHES",
            "reset_launch_counts"]
 
-# Launches of K3, counted where the wrapper launches the kernel.
-K3_LAUNCHES = 0
+# Launches of K3, counted where the wrapper launches the kernel; read as
+# K3_LAUNCHES.
+_LAUNCHES = LaunchCounter("K3_LAUNCHES")
 
 _B = 32
 _MAX_N = 1024
@@ -28,8 +29,7 @@ _MAX_N = 1024
 
 def reset_launch_counts() -> None:
     """Set the launch counter to zero."""
-    global K3_LAUNCHES
-    K3_LAUNCHES = 0
+    _LAUNCHES.reset()
 
 
 def mxu_supported(n: int) -> bool:
@@ -46,7 +46,6 @@ def tri_inv_plain(A):
 
 def tri_inv(A):
     """K3: X = L^-1 with L L^T = A, A (P, n, n) -> X (P, n, n) lower."""
-    global K3_LAUNCHES
     dev = A.device.type
     if dev == "cpu":
         return tri_inv_plain(A)
@@ -69,5 +68,11 @@ def tri_inv(A):
                            dws.data_ptr(),
                            torch.cuda.current_stream(A.device).cuda_stream)
     raise_on(rc, "K3 tri_inv")
-    K3_LAUNCHES += 1
+    _LAUNCHES.bump("K3_LAUNCHES")
     return X
+
+
+def __getattr__(name):
+    if name in _LAUNCHES:
+        return _LAUNCHES[name]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from .cudalib import library, raise_on
+from .cudalib import LaunchCounter, library, raise_on
 from .kernels import eval_cov_batch
 from .megacov import cov_batched
 from .megalml import _HEAP_SIZES, _pad_heap
@@ -41,9 +41,9 @@ __all__ = [
     "set_cov_backend",
 ]
 
-# Launches of K7F and K7B, counted where each wrapper launches its kernel.
-K7F_LAUNCHES = 0
-K7B_LAUNCHES = 0
+# Launches of K7F and K7B, counted where each wrapper launches its kernel;
+# read as K7F_LAUNCHES and K7B_LAUNCHES.
+_LAUNCHES = LaunchCounter("K7F_LAUNCHES", "K7B_LAUNCHES")
 
 MAX_FUSED_N = 512
 
@@ -53,9 +53,7 @@ _COV_BACKEND = "jnp"
 
 def reset_launch_counts() -> None:
     """Set both launch counters to zero."""
-    global K7F_LAUNCHES, K7B_LAUNCHES
-    K7F_LAUNCHES = 0
-    K7B_LAUNCHES = 0
+    _LAUNCHES.reset()
 
 
 def fused_supported(n: int, m: int) -> bool:
@@ -145,7 +143,6 @@ def _device(types):
 
 def cov_fwd(types, params, x1, x2):
     """K7F: K(x1_p, x2_p) -> (P, n, m)."""
-    global K7F_LAUNCHES
     if _device(types) == "cpu":
         return cov_fwd_plain(types, params, x1, x2)
     sym = _symmetric(x1, x2)
@@ -157,13 +154,12 @@ def cov_fwd(types, params, x1, x2):
         x1.data_ptr(), (x1 if sym else x2).data_ptr(), K.data_ptr(),
         torch.cuda.current_stream(types.device).cuda_stream)
     raise_on(rc, "K7F cov_fwd")
-    K7F_LAUNCHES += 1
+    _LAUNCHES.bump("K7F_LAUNCHES")
     return K
 
 
 def cov_bwd(types, params, x1, x2, dK):
     """K7B: cotangent dK (P, n, m) -> dparams (P, N, 3)."""
-    global K7B_LAUNCHES
     if _device(types) == "cpu":
         return cov_bwd_plain(types, params, x1, x2, dK)
     sym = _symmetric(x1, x2)
@@ -180,7 +176,7 @@ def cov_bwd(types, params, x1, x2, dK):
         dparams.data_ptr(), partial.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(rc, "K7B cov_bwd")
-    K7B_LAUNCHES += 1
+    _LAUNCHES.bump("K7B_LAUNCHES")
     return dparams
 
 
@@ -251,3 +247,9 @@ def cov_fn(node_types, params, x1, x2=None):
     elif x2 is None:
         return cov_batched(node_types, params, x1)
     return eval_cov_batch(node_types, params, x1, xb)
+
+
+def __getattr__(name):
+    if name in _LAUNCHES:
+        return _LAUNCHES[name]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -6,6 +6,12 @@ library with a plain C interface, bound with ``ctypes``.  The library lands
 in ``_build/`` beside the package (listed in ``.gitignore``), named by a hash
 over every source and header, so an edit to any of them rebuilds it at first
 use and an unchanged tree reuses it.
+
+Each C entry point launches on the calling thread's current CUDA device and
+sets its kernels' dynamic shared-memory limit before every launch (the
+attribute is per device), so one process may launch on several cards
+(``parallel/sharding.py``).  ``LaunchCounter`` keeps the wrappers' launch
+counts exact when host threads launch at once.
 """
 
 from __future__ import annotations
@@ -15,15 +21,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
-__all__ = ["build_library", "library", "raise_on"]
+__all__ = ["build_library", "library", "raise_on", "LaunchCounter"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 _LIB = None
+_LIB_LOCK = threading.Lock()
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 # C entry points: (argument types), all returning a cudaError_t as int
@@ -106,16 +114,17 @@ def build_library(verbose: bool = False) -> tuple[Path, str]:
 
 
 def library():
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use, by one thread)."""
     global _LIB
-    if _LIB is None:
-        path, _ = build_library()
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = _I32
-        _LIB = lib
+    with _LIB_LOCK:
+        if _LIB is None:
+            path, _ = build_library()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _I32
+            _LIB = lib
     return _LIB
 
 
@@ -123,3 +132,30 @@ def raise_on(rc: int, which: str) -> None:
     """Raise if a C entry point returned a nonzero ``cudaError_t``."""
     if rc != 0:
         raise RuntimeError(f"{which} launch failed with cudaError_t {rc}")
+
+
+class LaunchCounter:
+    """Launch counts of named kernels, exact when several host threads
+    launch at once: each wrapper calls ``bump`` where it launches its
+    kernel, and only there.  A module that owns one serves its counts as
+    module attributes (``megalml.K1_LAUNCHES``) through ``__getattr__``."""
+
+    def __init__(self, *names: str):
+        self._lock = threading.Lock()
+        self._counts = dict.fromkeys(names, 0)
+
+    def bump(self, name: str) -> None:
+        with self._lock:
+            self._counts[name] += 1
+
+    def __getitem__(self, name: str) -> int:
+        with self._lock:
+            return self._counts[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._counts
+
+    def reset(self) -> None:
+        with self._lock:
+            for name in self._counts:
+                self._counts[name] = 0

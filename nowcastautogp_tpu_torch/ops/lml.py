@@ -13,12 +13,16 @@ devices, so the CPU tests run the glue the card runs:
 
 * n <= 512: the fused core of ``ops/megalml.py`` (K1/K2 on a CUDA tensor,
   their plain version on a CPU tensor);
-* 512 < n <= 2048: the composed core, the JAX package's ``_lml_from_K``
-  path: K(x, x) from ``CovFn`` (K4 forward, K5 backward), the masked A, then
+* n > 512: the composed core, the JAX package's ``_lml_from_K`` path:
+  K(x, x) from ``CovFn`` (K4 forward, K5 backward), the masked A, then
   ``InvCoreFn`` (K3's X = L^-1 for n <= 1024, the JAX ``"inv"`` form of
   ``cholesky_nan`` and a triangular solve above), whose backward is the
-  analytic dA = c/2 (alpha alpha^T - A^-1), dym = -c alpha;
-* beyond 2048: ``NotImplementedError``.
+  analytic dA = c/2 (alpha alpha^T - A^-1), dym = -c alpha.  It holds a
+  few (n, n) planes a particle, so it runs over chunks of particles under
+  a byte budget (``composed_chunk``): at P = 200 a float32 plane is 0.27 GB
+  at n = 576 but 3.9 GB at n = 2,208.  Beyond 2048 the JAX package runs the
+  same function through its interpreter and an XLA Cholesky; the port runs
+  K4/K5 up to their envelope's 4096 and raises beyond it on the card.
 
 That is the default LML backend ("auto", or "mega": the JAX package's
 names).  ``set_lml_backend("pallas")`` selects the JAX package's opt-in
@@ -35,22 +39,34 @@ values carried out of HMC) come from one numerical core.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import chol, megalml
 from .chol_mxu import mxu_supported, tri_inv
 from .cov import cov_fn
-from .megacov import MAX_MEGA_N, cov_batched
+from .megacov import cov_batched
 from .megalml import cholesky_nan
 
 __all__ = [
     "masked_kernel_matrix", "gp_lml_batched", "gp_predict_batch",
     "gp_predict_batch_rows", "sampling_cholesky", "lml_core",
-    "lml_core_composed", "InvCoreFn", "set_lml_backend", "LOG_2PI",
-    "DEFAULT_JITTER",
+    "lml_core_composed", "composed_chunk", "InvCoreFn", "set_lml_backend",
+    "LOG_2PI", "DEFAULT_JITTER",
 ]
 
 LOG_2PI = 1.8378770664093453
 DEFAULT_JITTER = 1e-5
+
+# The byte budget of batched work on the card, shared with the nowcast's
+# scenario chunks and the panel's rows.  A row (a particle) is budgeted at
+# 8 (cap, cap) float32 matrices: K1's two workspaces and K2's one; the
+# composed core's K, A, its mask plane, L, L^-1, A^-1 and its float64
+# cotangent.  A call is budgeted at 32 GiB of the H100's 80 GB.
+# chip_smoke.py measures the peak where the budget binds: the nowcast
+# refresh at capacity 576 (phase 6) and the composed core at n = 4,096
+# (phase 8).
+_ROW_MATRICES = 8
+_CHUNK_BYTES = 32 * 2**30
 
 _LML_BACKEND = "auto"
 
@@ -90,8 +106,8 @@ def _tri_inv_inv_form(A):
     """X = L^-1 by ``cholesky_nan`` and a triangular solve against I: the
     JAX package's ``"inv"`` form (``_ainv_logdet_xla``).  The reference runs
     no kernel for it, so neither does the port: it is chosen by shape, on
-    both devices, where K3's envelope ends (1024 < n <= 2048, or n not a
-    multiple of 32), never as a fallback from a failed launch."""
+    both devices, where K3's envelope ends (n > 1024, or n not a multiple
+    of 32), never as a fallback from a failed launch."""
     L = cholesky_nan(A)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     return torch.linalg.solve_triangular(L, eye.expand_as(A), upper=False)
@@ -146,17 +162,42 @@ def lml_core_composed(types, params, diagv, mask, x, ym):
     return InvCoreFn.apply(A, ym)
 
 
+def composed_chunk(n: int) -> int:
+    """Particles per composed-core call at capacity n: as many as
+    ``_CHUNK_BYTES`` holds at ``_ROW_MATRICES`` (n, n) float32 planes a
+    particle.  A particle that alone exceeds the budget raises."""
+    per_particle = _ROW_MATRICES * n * n * 4
+    if per_particle > _CHUNK_BYTES:
+        raise ValueError(
+            f"one particle at capacity n={n} needs {per_particle / 2**30:.1f}"
+            f" GiB ({_ROW_MATRICES} (n, n) float32 planes), above the "
+            f"{_CHUNK_BYTES / 2**30:.0f} GiB budget of one call")
+    return _CHUNK_BYTES // per_particle
+
+
 def lml_core(types, params, diagv, mask, x, ym):
     """Batched ``-0.5 (ym^T A^-1 ym + logdet A)`` with A = K(x, x) o (m m^T)
-    + diag(diagv), dispatched by capacity (module docstring)."""
+    + diag(diagv), dispatched by capacity (module docstring).  The composed
+    core runs one call per chunk of ``composed_chunk(n)`` particles, so the
+    value and the gradient at one shape take the same chunks.  Where a
+    gradient is wanted each chunk is checkpointed: it keeps only its inputs
+    for the backward, which recomputes its planes one chunk at a time, so
+    the chunks' saved planes (A^-1 and the mask product a particle) never
+    pile up beyond one chunk's."""
     n = x.shape[-1]
     if n <= megalml._MAX_N:
         return megalml.lml_core(types, params, diagv, mask, x, ym)
-    if n <= MAX_MEGA_N:
+    chunk = composed_chunk(n)
+    P = params.shape[0]
+    if P <= chunk:
         return lml_core_composed(types, params, diagv, mask, x, ym)
-    raise NotImplementedError(
-        f"capacity n={n} is beyond the LML's envelope (n <= {MAX_MEGA_N}: "
-        "the fused core up to 512, the composed core above; ROADMAP.md)")
+    args = (types, params, diagv, mask, x, ym)
+    parts = []
+    for i in range(0, P, chunk):
+        part = tuple(a[i:i + chunk] for a in args)
+        parts.append(checkpoint(lml_core_composed, *part, use_reentrant=False)
+                     if torch.is_grad_enabled() else lml_core_composed(*part))
+    return torch.cat(parts)
 
 
 def gp_lml_batched(node_types, params, log_noise, x, y, mask,

@@ -11,7 +11,7 @@
   ``ops/pallas_megacov.py::cov_batched_fused``.
 
 On a CUDA tensor the wrappers launch their kernel or raise: a shape
-outside the envelope (N in {7, 15, 31, 63}, 8 <= n <= 2048, n % 8 == 0)
+outside the envelope (N in {7, 15, 31, 63}, 8 <= n <= 4096, n % 8 == 0)
 or a failed launch is an error, never a fallback.  Each wrapper call is one
 C call and one count, though it runs a launch per heap class.  The kernels
 replace ``pallas_megacov.py::_cov_fwd_kernel`` (K4) and
@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from .cudalib import library, raise_on
+from .cudalib import LaunchCounter, library, raise_on
 from .kernels import eval_cov_batch
 from .megalml import _HEAP_SIZES, _pad_heap
 
@@ -34,23 +34,24 @@ __all__ = [
     "K4_LAUNCHES", "K5_LAUNCHES", "reset_launch_counts", "MAX_MEGA_N",
 ]
 
-# Launches of K4 and K5, counted where each wrapper launches its kernel.
-K4_LAUNCHES = 0
-K5_LAUNCHES = 0
+# Launches of K4 and K5, counted where each wrapper launches its kernel;
+# read as K4_LAUNCHES and K5_LAUNCHES.
+_LAUNCHES = LaunchCounter("K4_LAUNCHES", "K5_LAUNCHES")
 
-MAX_MEGA_N = 2048
+# The kernels' largest n.  The JAX package's kernel ends at 2048 and its
+# interpreter runs beyond; the port's kernels run the same tiles up to here.
+MAX_MEGA_N = 4096
 
 
 def reset_launch_counts() -> None:
     """Set both launch counters to zero."""
-    global K4_LAUNCHES, K5_LAUNCHES
-    K4_LAUNCHES = 0
-    K5_LAUNCHES = 0
+    _LAUNCHES.reset()
 
 
 def megacov_supported(n_nodes: int, n: int) -> bool:
-    """The kernels' envelope: heaps of at most 63 slots, 8 <= n <= 2048,
-    n a multiple of 8 (the JAX package's ``megacov_supported``)."""
+    """The kernels' envelope: heaps of at most 63 slots, 8 <= n <= 4096,
+    n a multiple of 8 (the JAX package's ``megacov_supported`` up to its
+    2048)."""
     return n_nodes <= _HEAP_SIZES[-1] and 8 <= n <= MAX_MEGA_N and n % 8 == 0
 
 
@@ -109,7 +110,6 @@ def _device(types):
 
 def megacov_fwd(types, params, x):
     """K4: K(x_p, x_p) -> (P, n, n)."""
-    global K4_LAUNCHES
     if _device(types) == "cpu":
         return megacov_fwd_plain(types, params, x)
     P, N, n = _check(types, params, x)
@@ -118,13 +118,12 @@ def megacov_fwd(types, params, x):
         N, P, n, types.data_ptr(), params.data_ptr(), x.data_ptr(),
         K.data_ptr(), torch.cuda.current_stream(types.device).cuda_stream)
     raise_on(rc, "K4 megacov_fwd")
-    K4_LAUNCHES += 1
+    _LAUNCHES.bump("K4_LAUNCHES")
     return K
 
 
 def megacov_bwd(types, params, x, dK):
     """K5: cotangent dK (P, n, n) -> dparams (P, N, 3)."""
-    global K5_LAUNCHES
     if _device(types) == "cpu":
         return megacov_bwd_plain(types, params, x, dK)
     P, N, n = _check(types, params, x, dK)
@@ -138,7 +137,7 @@ def megacov_bwd(types, params, x, dK):
         dK.data_ptr(), dparams.data_ptr(), partial.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     raise_on(rc, "K5 megacov_bwd")
-    K5_LAUNCHES += 1
+    _LAUNCHES.bump("K5_LAUNCHES")
     return dparams
 
 
@@ -165,3 +164,9 @@ def cov_batched(types, params, x):
     P = types.shape[0]
     tk, pk = _pad_heap(types.to(torch.int32).contiguous(), params.contiguous())
     return CovFn.apply(tk, pk, x.expand(P, x.shape[-1]).contiguous())
+
+
+def __getattr__(name):
+    if name in _LAUNCHES:
+        return _LAUNCHES[name]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from .cudalib import library, raise_on
+from .cudalib import LaunchCounter, library, raise_on
 from .kernels import eval_cov_batch
 
 __all__ = [
@@ -40,9 +40,9 @@ __all__ = [
 ]
 
 # Launches of K1 (value + gradient) and K2 (value only), counted where each
-# wrapper launches its kernel and nowhere else.
-K1_LAUNCHES = 0
-K2_LAUNCHES = 0
+# wrapper launches its kernel and nowhere else; read as K1_LAUNCHES and
+# K2_LAUNCHES.
+_LAUNCHES = LaunchCounter("K1_LAUNCHES", "K2_LAUNCHES")
 
 _HEAP_SIZES = (7, 15, 31, 63)
 _MAX_N = 512
@@ -50,9 +50,7 @@ _MAX_N = 512
 
 def reset_launch_counts() -> None:
     """Set both launch counters to zero."""
-    global K1_LAUNCHES, K2_LAUNCHES
-    K1_LAUNCHES = 0
-    K2_LAUNCHES = 0
+    _LAUNCHES.reset()
 
 
 def megalml_supported(n_nodes: int, n: int) -> bool:
@@ -112,7 +110,6 @@ def _check_inputs(types, params, diagv, mask, x, ym):
 
 def megalml_val(types, params, diagv, mask, x, ym):
     """K2: value-only kernel -> core (P,)."""
-    global K2_LAUNCHES
     P, N, n = _check_inputs(types, params, diagv, mask, x, ym)
     lib = library()
     dev = types.device
@@ -125,14 +122,13 @@ def megalml_val(types, params, diagv, mask, x, ym):
                          ym.data_ptr(), core.data_ptr(), ws.data_ptr(),
                          dws.data_ptr(), stream)
     raise_on(rc, "K2 megalml_val")
-    K2_LAUNCHES += 1
+    _LAUNCHES.bump("K2_LAUNCHES")
     return core
 
 
 def megalml_vag(types, params, diagv, mask, x, ym):
     """K1: value and gradients -> (core (P,), dparams (P, N, 3),
     gdiag (P, n) = d core / d diagv, alpha (P, n) = A^-1 ym)."""
-    global K1_LAUNCHES
     P, N, n = _check_inputs(types, params, diagv, mask, x, ym)
     lib = library()
     dev = types.device
@@ -153,7 +149,7 @@ def megalml_vag(types, params, diagv, mask, x, ym):
                          ws2.data_ptr(), dws.data_ptr(), partial.data_ptr(),
                          stream)
     raise_on(rc, "K1 megalml_vag")
-    K1_LAUNCHES += 1
+    _LAUNCHES.bump("K1_LAUNCHES")
     return core, dparams, gdiag, alpha
 
 
@@ -205,3 +201,9 @@ def lml_core(types, params, diagv, mask, x, ym):
             params.requires_grad or diagv.requires_grad or ym.requires_grad)
         return LmlCoreFn.apply(want_grad, types, params, diagv, mask, x, ym)
     raise ValueError(f"no LML core for device {params.device}")
+
+
+def __getattr__(name):
+    if name in _LAUNCHES:
+        return _LAUNCHES[name]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

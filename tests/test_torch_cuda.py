@@ -167,18 +167,21 @@ def test_non_spd_particle_is_nan_in_its_lane_only(dev):
 
 
 def test_outside_the_envelope_raises(dev):
-    """n = 2080 is beyond every LML path; n = 544 takes the composed one."""
-    for n, runs in ((2080, False), (544, True)):
+    """n = 4104 is beyond K4/K5's envelope and raises; n = 544 and 2080
+    take the composed core (K4 once, no K1/K2)."""
+    for n, runs in ((4104, False), (2080, True), (544, True)):
         types, params, diagv, mask, x, ym = _batch(dev, n=n, n_active=n - 9)
         log_noise = torch.full((types.shape[0],), -2.0, device=dev)
         if not runs:
-            with pytest.raises(NotImplementedError, match="2048"):
+            with pytest.raises(NotImplementedError, match="4096"):
                 lml.gp_lml_batched(types, params, log_noise, x, ym, mask)
             continue
         megalml.reset_launch_counts()
+        megacov.reset_launch_counts()
         out = lml.gp_lml_batched(types, params, log_noise, x, ym, mask)
         assert torch.isfinite(out).all()
         assert (megalml.K1_LAUNCHES, megalml.K2_LAUNCHES) == (0, 0)
+        assert megacov.K4_LAUNCHES == 1
 
 
 def _spd(dev, n, n_active, seed=1):
@@ -586,3 +589,32 @@ def test_device_engine_on_the_card(dev):
     assert fitted.n_ingested == 24
     assert np.all(np.isfinite(fitted.log_weight))
     assert torch.isfinite(fitted._lml_d).all()
+
+
+def test_every_kernel_on_every_card(dev):
+    """Each kernel launched on every visible card, under
+    ``torch.cuda.device`` as a mesh shard launches, gives cuda:0's bits:
+    the kernels with more than 48 KB of dynamic shared memory (K1, K2,
+    K3, K6a, K6b, K5's class-31 launch) set its limit on each card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs more than one card")
+
+    def kernels(d):
+        with torch.cuda.device(d):
+            args = _batch(d, n=160, n_active=150)
+            types, params, diagv, mask, x, ym = args
+            _, A, _ = _spd(d, 576, 560)
+            t5, p5, x5 = _spd(d, 576, 560)[0]
+            L, alpha = chol.chol_solve_batched(_spd(d, 160, 150)[1], ym)
+            dK = torch.ones((types.shape[0], 576, 576), device=d)
+            out = [megalml.megalml_val(*args), *megalml.megalml_vag(*args),
+                   chol_mxu.tri_inv(A), megacov.megacov_fwd(t5, p5, x5),
+                   megacov.megacov_bwd(t5, p5, x5, dK), L, alpha,
+                   chol.tri_inverse(L)]
+            torch.cuda.synchronize()
+            return [o.cpu() for o in out]
+
+    ref = kernels(torch.device("cuda", 0))
+    for i in range(1, torch.cuda.device_count()):
+        for g, r in zip(kernels(torch.device("cuda", i)), ref):
+            assert torch.equal(g, r), f"cuda:{i}"

@@ -250,18 +250,23 @@ def test_masked_kernel_matrix_takes_the_covariance_kernel_path(monkeypatch):
                                rtol=0, atol=0)
 
 
-def test_lml_beyond_the_envelope_raises():
+def test_lml_beyond_the_envelope_raises(monkeypatch):
+    """Beyond 2048 the composed core runs in particle chunks under the byte
+    budget; a particle that alone exceeds the budget raises, with the
+    sizes, before any work."""
     P, n = 2, 2080
     z = torch.zeros(P, n)
-    with pytest.raises(NotImplementedError, match="2048"):
+    monkeypatch.setattr(lml, "_CHUNK_BYTES", lml._ROW_MATRICES * n * n * 4 - 1)
+    with pytest.raises(ValueError, match="n=2080 needs .* GiB budget"):
         lml.lml_core(torch.zeros(P, 7, dtype=torch.int32), torch.zeros(P, 7, 3),
                      z + 1, z + 1, z, z)
 
 
 @pytest.mark.parametrize("n_nodes,n_pts,cov_ok,inv_ok", [
     (31, 576, True, True), (63, 2048, True, False), (7, 8, True, False),
-    (31, 1024, True, True), (127, 576, False, True), (31, 2056, False, False),
-    (31, 100, False, False), (31, 1056, True, False),
+    (31, 1024, True, True), (127, 576, False, True), (31, 2056, True, False),
+    (31, 100, False, False), (31, 1056, True, False), (31, 4096, True, False),
+    (31, 4104, False, False),
 ])
 def test_kernel_envelopes(n_nodes, n_pts, cov_ok, inv_ok):
     assert megacov.megacov_supported(n_nodes, n_pts) is cov_ok

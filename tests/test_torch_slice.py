@@ -24,7 +24,7 @@ from nowcastautogp_tpu_torch import nowcast
 from nowcastautogp_tpu_torch.inference.hmc import run_hmc
 from nowcastautogp_tpu_torch.models.gp_model import GPModel
 from nowcastautogp_tpu_torch.models.structures import prior_arrays
-from nowcastautogp_tpu_torch.ops.lml import lml_core
+from nowcastautogp_tpu_torch.ops.lml import lml_core, set_lml_backend
 
 torch.set_num_threads(1)
 
@@ -278,12 +278,17 @@ def test_hmc_prior_invariance_with_empty_mask():
 
 
 def test_unported_paths_raise():
-    """What the port still lacks raises and names ROADMAP.md: capacities
-    beyond 2048."""
+    """What the port does not port raises and names ROADMAP.md: the JAX
+    package's "jnp" LML backend.  Capacities beyond 2048 run (the composed
+    core in particle chunks): with every point masked, A is the identity
+    and the core is 0."""
     dates, y = _series()
     pm = GPModel(dates[:N_TRAIN], y[:N_TRAIN], n_particles=2,
                  config=ngp.GPConfig(max_depth=2), seed=1, device="cpu")
     x, ym, mask = (torch.zeros(2, 2080) for _ in range(3))
+    with torch.no_grad():
+        core = lml_core(pm._types_d(), pm._params_d, torch.ones(2, 2080),
+                        mask, x, ym)
+    assert torch.equal(core, torch.zeros(2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lml_core(pm._types_d(), pm._params_d, torch.ones(2, 2080), mask, x,
-                 ym)
+        set_lml_backend("jnp")
