@@ -1,0 +1,8 @@
+"""Percent of the H100's 67 TFLOP/s: the request's counted operations over
+its wall-clock."""
+
+from ._shared import mfu
+
+
+def read(ctx):
+    return mfu(ctx, "request")
