@@ -9,8 +9,8 @@ with its refresh branches; the multi-series panel (``fit_panel``,
 several (``make_mesh``, ``parallel/sharding.py``); and the
 workflow around them: CRPS/WIS scoring, hubverse quantile submissions,
 vintaged data, the five-approach acceptance comparison
-(``run_acceptance``), additive decomposition, checkpoints and phase
-timers.  The masked GP log marginal
+(``run_acceptance``), additive decomposition, checkpoints, phase
+timers and spans (``recording``).  The masked GP log marginal
 likelihood runs in hand-written CUDA kernels on an NVIDIA card (``csrc/``:
 by default the fused K1/K2 up to capacity 512 and the composed
 K4 -> K3 -> K5 path above, up to 4096; under the opt-in "pallas" LML and
@@ -48,7 +48,9 @@ from .parallel.sharding import make_mesh
 from .tdata import TData, create_transformed_data
 from .transforms import get_transformations
 from .utils.data import VintagedData, load_vintaged_csv
-from .utils.profiling import device_trace, phase_report, reset_phases
+from .utils.profiling import (
+    device_trace, phase_report, recording, reset_phases,
+)
 from .utils.serialize import load_model, save_model
 
 __version__ = "0.1.0"
@@ -64,7 +66,7 @@ __all__ = [
     "quantile_matrix_device", "run_acceptance", "synthetic_nhsn_vintage",
     "wis_ensemble", "wis_matrix", "interval_score", "coverage_matrix",
     "FLUSIGHT_QUANTILES", "quantile_submission", "write_submission_csv",
-    "phase_report", "reset_phases", "device_trace",
+    "phase_report", "reset_phases", "device_trace", "recording",
     "save_model", "load_model", "VintagedData", "load_vintaged_csv",
     "fit_panel", "forecast_panel", "panel_predict_mvn", "make_mesh",
 ]

@@ -17,6 +17,7 @@ from .inference.smc import fit_smc
 from .models.config import GPConfig
 from .models.gp_model import GPModel
 from .tdata import TData
+from .utils.profiling import span
 
 __all__ = ["make_and_fit_model", "_stabilize_for_fit"]
 
@@ -62,12 +63,13 @@ def make_and_fit_model(
     ``shuffle``, ``verbose``, ``adaptive_rejuvenation``) pass through
     unchanged.  The ``config`` object is stored on the model by reference.
     """
-    config = config if config is not None else GPConfig()
-    n_train = len(data.y)
-    y_fit = _stabilize_for_fit(data.y, flat_threshold=flat_threshold)
-    model = GPModel(data.ds, y_fit, n_particles=n_particles, config=config,
-                    seed=seed, device=device)
-    effective_proportion = max(smc_data_proportion, 1.0 / max(n_train, 1))
-    schedule = linear_schedule(n_train, effective_proportion)
-    fit_smc(model, schedule=schedule, **kwargs)
-    return model
+    with span("api/make_and_fit_model"):
+        config = config if config is not None else GPConfig()
+        n_train = len(data.y)
+        y_fit = _stabilize_for_fit(data.y, flat_threshold=flat_threshold)
+        model = GPModel(data.ds, y_fit, n_particles=n_particles,
+                        config=config, seed=seed, device=device)
+        effective_proportion = max(smc_data_proportion, 1.0 / max(n_train, 1))
+        schedule = linear_schedule(n_train, effective_proportion)
+        fit_smc(model, schedule=schedule, **kwargs)
+        return model

@@ -19,6 +19,7 @@ from .models.structures import prior_arrays
 from .ops.forecast_scan import forecast_hmc_scan
 from .ops.lml import DEFAULT_JITTER
 from .utils.apply import apply_elementwise
+from .utils.profiling import readback, span
 
 __all__ = ["forecast"]
 
@@ -35,16 +36,17 @@ def forecast(
     hyperparameters between draws -- both the dispatch semantics of the
     reference.
     """
-    dates = list(forecast_dates)
-    if forecast_n_hmc is None:
-        dist = predict_mvn(model, dates)
-        draws = dist.sample(model.rng, int(forecast_draws))
-    else:
-        if int(forecast_n_hmc) <= 0:
-            raise ValueError("forecast_n_hmc must be > 0 if specified")
-        draws = _forecast_hmc(model, dates, int(forecast_draws),
-                              int(forecast_n_hmc))
-    return apply_elementwise(inv_transformation, draws)
+    with span("api/forecast"):
+        dates = list(forecast_dates)
+        if forecast_n_hmc is None:
+            dist = predict_mvn(model, dates)
+            draws = dist.sample(model.rng, int(forecast_draws))
+        else:
+            if int(forecast_n_hmc) <= 0:
+                raise ValueError("forecast_n_hmc must be > 0 if specified")
+            draws = _forecast_hmc(model, dates, int(forecast_draws),
+                                  int(forecast_n_hmc))
+        return apply_elementwise(inv_transformation, draws)
 
 
 def _forecast_hmc(model: GPModel, dates, n_draws: int,
@@ -69,5 +71,5 @@ def _forecast_hmc(model: GPModel, dates, n_draws: int,
     )
     model._params_d, model._log_noise_d = params, log_noise
     model._lml_d, model._eps_scale_d = lml, scale
-    out = samples.cpu().numpy().astype(np.float64)
+    out = readback(samples).astype(np.float64)
     return model._y_mean + model._y_std * out

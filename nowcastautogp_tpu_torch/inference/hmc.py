@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.lml import gp_lml_batched
+from ..utils.profiling import span
 
 __all__ = ["make_batched_potential", "run_hmc"]
 
@@ -53,12 +54,13 @@ def make_batched_potential(
 
 def _value_and_grad(potential, p, ln):
     """(U, lml, dU/dp, dU/dln) at (p, ln), with no graph left behind."""
-    p = p.detach().requires_grad_(True)
-    ln = ln.detach().requires_grad_(True)
-    with torch.enable_grad():
-        U, lml = potential(p, ln)
-        g_p, g_n = torch.autograd.grad(U.sum(), (p, ln))
-    return U.detach(), lml.detach(), g_p, g_n
+    with span("lml/grad"):
+        p = p.detach().requires_grad_(True)
+        ln = ln.detach().requires_grad_(True)
+        with torch.enable_grad():
+            U, lml = potential(p, ln)
+            g_p, g_n = torch.autograd.grad(U.sum(), (p, ln))
+        return U.detach(), lml.detach(), g_p, g_n
 
 
 def run_hmc(
@@ -77,54 +79,58 @@ def run_hmc(
     (U, g_p, g_n))``, the last the final state's potential and gradients,
     valid for the same carrying.
     """
-    P = params.shape[0]
-    dev = params.device
-    if eps_scale is None:
-        eps_scale = torch.ones(P, dtype=params.dtype, device=dev)
-    potential = make_batched_potential(
-        node_types, prior_mu, prior_sigma, prior_active,
-        x, y, mask, jitter, noise_mu, noise_sigma, infer_noise,
-    )
-    if init is None:
-        U0, lml, g_p, g_n = _value_and_grad(potential, params, log_noise)
-    else:
-        U0, lml, g_p, g_n = init
-    p, ln, scale = params.detach(), log_noise.detach(), eps_scale
-    n_acc = torch.zeros(P, dtype=torch.float32, device=dev)
-    for _ in range(n_steps):
-        eps = step_size * scale * (
-            1.0 + step_jitter * (
-                2.0 * torch.rand(P, generator=gen, device=dev) - 1.0))
-        eps3 = eps[:, None, None]
-        mom_p = torch.randn(p.shape, generator=gen, device=dev) * prior_active
-        mom_n = torch.randn(P, generator=gen, device=dev) * infer_noise
-        K0 = 0.5 * ((mom_p * mom_p).sum((1, 2)) + mom_n * mom_n)
+    with span("hmc/run"):
+        P = params.shape[0]
+        dev = params.device
+        if eps_scale is None:
+            eps_scale = torch.ones(P, dtype=params.dtype, device=dev)
+        potential = make_batched_potential(
+            node_types, prior_mu, prior_sigma, prior_active,
+            x, y, mask, jitter, noise_mu, noise_sigma, infer_noise,
+        )
+        if init is None:
+            U0, lml, g_p, g_n = _value_and_grad(potential, params, log_noise)
+        else:
+            U0, lml, g_p, g_n = init
+        p, ln, scale = params.detach(), log_noise.detach(), eps_scale
+        n_acc = torch.zeros(P, dtype=torch.float32, device=dev)
+        for _ in range(n_steps):
+            with span("hmc/trajectory"):
+                eps = step_size * scale * (
+                    1.0 + step_jitter * (
+                        2.0 * torch.rand(P, generator=gen, device=dev) - 1.0))
+                eps3 = eps[:, None, None]
+                mom_p = torch.randn(p.shape, generator=gen,
+                                    device=dev) * prior_active
+                mom_n = torch.randn(P, generator=gen, device=dev) * infer_noise
+                K0 = 0.5 * ((mom_p * mom_p).sum((1, 2)) + mom_n * mom_n)
 
-        p_, ln_, mp, mn, gp_, gn_ = p, ln, mom_p, mom_n, g_p, g_n
-        U_, lml_ = U0, lml
-        for _ in range(n_leapfrog):
-            mp = mp - 0.5 * eps3 * gp_ * prior_active
-            mn = mn - 0.5 * eps * gn_ * infer_noise
-            p_ = p_ + eps3 * mp * prior_active
-            ln_ = ln_ + eps * mn * infer_noise
-            U_, lml_, gp_, gn_ = _value_and_grad(potential, p_, ln_)
-            mp = mp - 0.5 * eps3 * gp_ * prior_active
-            mn = mn - 0.5 * eps * gn_ * infer_noise
-        K1 = 0.5 * ((mp * mp).sum((1, 2)) + mn * mn)
-        dH = (U0 + K0) - (U_ + K1)
-        u = torch.rand(P, generator=gen, device=dev)
-        ok = torch.isfinite(dH) & (torch.log(u) < torch.clamp_max(dH, 0.0))
-        ok3 = ok[:, None, None]
-        p = torch.where(ok3, p_, p)
-        ln = torch.where(ok, ln_, ln)
-        U0 = torch.where(ok, U_, U0)
-        lml = torch.where(ok, lml_, lml)
-        g_p = torch.where(ok3, gp_, g_p)
-        g_n = torch.where(ok, gn_, g_n)
-        okf = ok.to(scale.dtype)
-        scale = torch.clamp(
-            scale * torch.exp(_ADAPT_RATE * (okf - _TARGET_ACCEPT)),
-            *_SCALE_BOUNDS)
-        n_acc = n_acc + okf
-    rate = n_acc / max(n_steps, 1)
-    return p, ln, lml, rate, scale, (U0, g_p, g_n)
+                p_, ln_, mp, mn, gp_, gn_ = p, ln, mom_p, mom_n, g_p, g_n
+                U_, lml_ = U0, lml
+                for _ in range(n_leapfrog):
+                    mp = mp - 0.5 * eps3 * gp_ * prior_active
+                    mn = mn - 0.5 * eps * gn_ * infer_noise
+                    p_ = p_ + eps3 * mp * prior_active
+                    ln_ = ln_ + eps * mn * infer_noise
+                    U_, lml_, gp_, gn_ = _value_and_grad(potential, p_, ln_)
+                    mp = mp - 0.5 * eps3 * gp_ * prior_active
+                    mn = mn - 0.5 * eps * gn_ * infer_noise
+                K1 = 0.5 * ((mp * mp).sum((1, 2)) + mn * mn)
+                dH = (U0 + K0) - (U_ + K1)
+                u = torch.rand(P, generator=gen, device=dev)
+                ok = torch.isfinite(dH) & (
+                    torch.log(u) < torch.clamp_max(dH, 0.0))
+                ok3 = ok[:, None, None]
+                p = torch.where(ok3, p_, p)
+                ln = torch.where(ok, ln_, ln)
+                U0 = torch.where(ok, U_, U0)
+                lml = torch.where(ok, lml_, lml)
+                g_p = torch.where(ok3, gp_, g_p)
+                g_n = torch.where(ok, gn_, g_n)
+                okf = ok.to(scale.dtype)
+                scale = torch.clamp(
+                    scale * torch.exp(_ADAPT_RATE * (okf - _TARGET_ACCEPT)),
+                    *_SCALE_BOUNDS)
+                n_acc = n_acc + okf
+        rate = n_acc / max(n_steps, 1)
+        return p, ln, lml, rate, scale, (U0, g_p, g_n)

@@ -30,7 +30,7 @@ import torch
 from ..models.config import HMCConfig
 from ..models.gp_model import _PAD
 from ..models.structures_device import ancestor_table, config_arrays
-from ..utils.profiling import phase
+from ..utils.profiling import phase, readback, span
 from .device_smc import smc_fit_device
 from .resample import ess
 
@@ -76,21 +76,22 @@ def fit_smc(
                            biased)
     t_start = time.time()
     for step_i, n_k in enumerate(schedule):
-        with phase("smc/reweight"):
-            model.reweight_to(int(n_k))
-            e = ess(model.log_weight)
-        low_ess = e < ess_fraction * P
-        do_rejuvenate = low_ess if adaptive_rejuvenation else True
-        if low_ess:
-            with phase("smc/resample"):
-                model.resample(method)
-        acc = None
-        if do_rejuvenate:
-            with phase("smc/rejuvenate"):
-                if n_mcmc > 0:
-                    acc = model.rejuvenate(n_mcmc, n_hmc, hmc_cfg)
-                elif n_hmc > 0:
-                    acc = model.hmc_only(n_hmc, hmc_cfg)
+        with span("smc/step"):
+            with phase("smc/reweight"):
+                model.reweight_to(int(n_k))
+                e = ess(model.log_weight)
+            low_ess = e < ess_fraction * P
+            do_rejuvenate = low_ess if adaptive_rejuvenation else True
+            if low_ess:
+                with phase("smc/resample"):
+                    model.resample(method)
+            acc = None
+            if do_rejuvenate:
+                with phase("smc/rejuvenate"):
+                    if n_mcmc > 0:
+                        acc = model.rejuvenate(n_mcmc, n_hmc, hmc_cfg)
+                    elif n_hmc > 0:
+                        acc = model.hmc_only(n_hmc, hmc_cfg)
         if verbose:
             logger.info(
                 "SMC step %d/%d: n=%d ESS=%.1f/%d resampled=%s "
@@ -146,7 +147,7 @@ def _fit_device(model, schedule, n_mcmc, n_hmc, hmc_cfg,
                 noise_sigma=noise_sigma, infer_noise=infer,
             )
         if verbose:
-            ess_s, acc_s, low_s = (d.cpu().numpy() for d in diag)
+            ess_s, acc_s, low_s = (readback(d) for d in diag)
             for i, n_k in enumerate(steps):
                 logger.info(
                     "SMC step %d/%d: n=%d cap=%d ESS=%.1f/%d resampled=%s "
@@ -155,9 +156,9 @@ def _fit_device(model, schedule, n_mcmc, n_hmc, hmc_cfg,
                     P, bool(low_s[i]), acc_s[i], time.time() - t0)
         step_base += len(steps)
     types, params, log_noise, log_w, lml, eps_scale = state
-    model._host_types = types.cpu().numpy().astype(np.int32)
+    model._host_types = readback(types).astype(np.int32)
     model._params_d, model._log_noise_d = params, log_noise
     model._lml_d, model._eps_scale_d = lml, eps_scale
-    model.log_weight = log_w.cpu().numpy().astype(np.float64)
+    model.log_weight = readback(log_w).astype(np.float64)
     model.n_ingested = int(schedule[-1])
     return model

@@ -36,6 +36,7 @@ from ..inference.resample import ess, gather_particles, resample_indices
 from ..inference.structure_mcmc import mcmc_structure_sweep
 from ..ops.lml import DEFAULT_JITTER, gp_lml_batched, gp_predict_batch
 from ..utils.dates import as_date_array, dates_to_float
+from ..utils.profiling import readback
 from .config import GPConfig, HMCConfig
 from .posterior import MvNormalMixture
 from .structures import prior_arrays, sample_particle
@@ -228,8 +229,8 @@ class GPModel:
             lml_new = gp_lml_batched(self._types_d(), self._params_d,
                                      self._log_noise_d, x, y, m,
                                      DEFAULT_JITTER)
-        lml_new_np = lml_new.cpu().numpy().astype(np.float64)
-        lml_old_np = self._lml_d.cpu().numpy().astype(np.float64)
+        lml_new_np = readback(lml_new).astype(np.float64)
+        lml_old_np = readback(self._lml_d).astype(np.float64)
         # broken particles (LML at the -1e10 rejection sentinel) must lose
         # weight, not gain ~1e10 of it when only the old value is broken
         delta = np.where(
@@ -273,7 +274,7 @@ class GPModel:
                 noise_mu=noise_mu, noise_sigma=noise_sigma, infer_noise=infer,
                 eps_scale=self._eps_scale_d,
             )
-            self._host_types = types.cpu().numpy().astype(np.int32)
+            self._host_types = readback(types).astype(np.int32)
             self._params_d, self._log_noise_d = params, log_noise
             self._lml_d, self._eps_scale_d = lml, scale
             return float(acc)
@@ -396,8 +397,8 @@ def predict_mvn(model: GPModel, ds, *,
             model._types_d(), model._params_d, model._log_noise_d, x, y, m,
             xs, DEFAULT_JITTER, include_noise)
     w = normalized_weights(model)
-    mu = model._y_mean + model._y_std * mu.cpu().numpy().astype(np.float64)
-    cov = (model._y_std**2) * cov.cpu().numpy().astype(np.float64)
+    mu = model._y_mean + model._y_std * readback(mu).astype(np.float64)
+    cov = (model._y_std**2) * readback(cov).astype(np.float64)
     return MvNormalMixture(w, mu, cov)
 
 

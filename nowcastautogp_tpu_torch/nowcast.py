@@ -64,6 +64,7 @@ from .parallel.sharding import (
 from .tdata import create_transformed_data
 from .utils.apply import apply_elementwise
 from .utils.dates import as_date_array, dates_to_float
+from .utils.profiling import readback, span
 
 __all__ = ["create_nowcast_data", "forecast_with_nowcasts"]
 
@@ -85,20 +86,22 @@ def create_nowcast_data(nowcasts, dates, *, transformation=lambda y: y):
     ``len(dates)``, the set must be non-empty, and all scenarios must have
     equal length.
     """
-    if isinstance(nowcasts, np.ndarray) and nowcasts.ndim == 2:
-        scenarios = [nowcasts[:, j] for j in range(nowcasts.shape[1])]
-    else:
-        scenarios = [np.asarray(list(v) if not isinstance(v, np.ndarray) else v)
-                     for v in nowcasts]
-    dates = list(dates)
-    if len(scenarios) == 0:
-        raise ValueError("nowcasts must not be empty")
-    if not all(len(s) == len(dates) for s in scenarios):
-        raise ValueError("Length of each nowcast must match length of dates")
-    return [
-        create_transformed_data(dates, s, transformation=transformation)
-        for s in scenarios
-    ]
+    with span("api/create_nowcast_data"):
+        if isinstance(nowcasts, np.ndarray) and nowcasts.ndim == 2:
+            scenarios = [nowcasts[:, j] for j in range(nowcasts.shape[1])]
+        else:
+            scenarios = [np.asarray(list(v) if not isinstance(v, np.ndarray)
+                                    else v) for v in nowcasts]
+        dates = list(dates)
+        if len(scenarios) == 0:
+            raise ValueError("nowcasts must not be empty")
+        if not all(len(s) == len(dates) for s in scenarios):
+            raise ValueError(
+                "Length of each nowcast must match length of dates")
+        return [
+            create_transformed_data(dates, s, transformation=transformation)
+            for s in scenarios
+        ]
 
 
 def _shared_dates(nowcasts) -> bool:
@@ -167,52 +170,53 @@ def forecast_with_nowcasts(
     scenario x particle rows, one body a shard, and the other branches run
     on ``base_model.device`` as without it.
     """
-    nowcasts = list(nowcasts)
-    if len(nowcasts) == 0:
-        raise ValueError("nowcasts vector must not be empty")
-    if n_mcmc > 0 and n_hmc == 0:
-        raise ValueError(
-            "If n_mcmc > 0, n_hmc must also be > 0 for MCMC refinement")
-    if not 0.0 <= ess_threshold <= 1.0:
-        raise ValueError("ess_threshold must be between 0 and 1")
-    if forecast_n_hmc is not None and forecast_n_hmc <= 0:
-        raise ValueError("forecast_n_hmc must be > 0 if specified")
-    D = int(forecast_draws_per_nowcast)
-    kw = dict(inv_transformation=inv_transformation, n_mcmc=n_mcmc,
-              n_hmc=n_hmc, ess_threshold=ess_threshold,
-              forecast_n_hmc=forecast_n_hmc, verbose=verbose,
-              draw_seed=draw_seed)
-    if not _shared_dates(nowcasts):
-        return _forecast_with_nowcasts_serial(
-            base_model, nowcasts, forecast_dates, D, **kw)
-    if n_mcmc == 0 and n_hmc == 0 and forecast_n_hmc is None:
-        if mesh is not None and mesh.size > 1:
-            logger.info(
-                "no-refresh nowcast path runs on one device (per-particle "
-                "shared Cholesky is ~%d-fold cheaper than the shardable "
-                "row-flattened form)", len(nowcasts))
-        return _forecast_with_nowcasts_shared_chol(
-            base_model, nowcasts, forecast_dates, D,
-            inv_transformation=inv_transformation, verbose=verbose,
-            draw_seed=draw_seed,
-        )
-    S = len(nowcasts)
-    n_dev = mesh.size if mesh is not None else 1
-    kw["mesh"] = mesh if n_dev > 1 else None
-    chunk = _scenario_chunk(base_model, nowcasts, kw["mesh"])
-    blocks = []
-    for lo in range(0, S, chunk):
-        part = nowcasts[lo:lo + chunk]
-        n_real = len(part)
-        # a mesh needs the scenarios to divide it: pad with the last one,
-        # trim its columns after
-        part = part + [part[-1]] * (-n_real % n_dev)
-        block = _forecast_with_nowcasts_batched(
-            base_model, part, forecast_dates, D, **kw)
-        blocks.append(block[:, :n_real * D])
-        if verbose and chunk < S:
-            logger.info("nowcast chunk %d-%d/%d done", lo, lo + n_real, S)
-    return np.concatenate(blocks, axis=1)
+    with span("api/forecast_with_nowcasts"):
+        nowcasts = list(nowcasts)
+        if len(nowcasts) == 0:
+            raise ValueError("nowcasts vector must not be empty")
+        if n_mcmc > 0 and n_hmc == 0:
+            raise ValueError(
+                "If n_mcmc > 0, n_hmc must also be > 0 for MCMC refinement")
+        if not 0.0 <= ess_threshold <= 1.0:
+            raise ValueError("ess_threshold must be between 0 and 1")
+        if forecast_n_hmc is not None and forecast_n_hmc <= 0:
+            raise ValueError("forecast_n_hmc must be > 0 if specified")
+        D = int(forecast_draws_per_nowcast)
+        kw = dict(inv_transformation=inv_transformation, n_mcmc=n_mcmc,
+                  n_hmc=n_hmc, ess_threshold=ess_threshold,
+                  forecast_n_hmc=forecast_n_hmc, verbose=verbose,
+                  draw_seed=draw_seed)
+        if not _shared_dates(nowcasts):
+            return _forecast_with_nowcasts_serial(
+                base_model, nowcasts, forecast_dates, D, **kw)
+        if n_mcmc == 0 and n_hmc == 0 and forecast_n_hmc is None:
+            if mesh is not None and mesh.size > 1:
+                logger.info(
+                    "no-refresh nowcast path runs on one device (per-particle "
+                    "shared Cholesky is ~%d-fold cheaper than the shardable "
+                    "row-flattened form)", len(nowcasts))
+            return _forecast_with_nowcasts_shared_chol(
+                base_model, nowcasts, forecast_dates, D,
+                inv_transformation=inv_transformation, verbose=verbose,
+                draw_seed=draw_seed,
+            )
+        S = len(nowcasts)
+        n_dev = mesh.size if mesh is not None else 1
+        kw["mesh"] = mesh if n_dev > 1 else None
+        chunk = _scenario_chunk(base_model, nowcasts, kw["mesh"])
+        blocks = []
+        for lo in range(0, S, chunk):
+            part = nowcasts[lo:lo + chunk]
+            n_real = len(part)
+            # a mesh needs the scenarios to divide it: pad with the last one,
+            # trim its columns after
+            part = part + [part[-1]] * (-n_real % n_dev)
+            block = _forecast_with_nowcasts_batched(
+                base_model, part, forecast_dates, D, **kw)
+            blocks.append(block[:, :n_real * D])
+            if verbose and chunk < S:
+                logger.info("nowcast chunk %d-%d/%d done", lo, lo + n_real, S)
+        return np.concatenate(blocks, axis=1)
 
 
 def _scenario_chunk(base_model, nowcasts, mesh=None) -> int:
@@ -353,10 +357,10 @@ def _scenario_buffers(base_model, nowcasts):
     n_new = n0 + len(nc_ds)
     cap = _scenario_cap(base_model, nc_ds)
     x_row = np.zeros(cap, dtype=np.float32)
-    x_row[:n0] = base_model._x_d[:n0].cpu().numpy()
+    x_row[:n0] = readback(base_model._x_d[:n0])
     x_row[n0:n_new] = base_model._normalize_dates(nc_ds)
     y_rows = np.zeros((S, cap), dtype=np.float32)
-    y_rows[:, :n0] = base_model._y_d[:n0].cpu().numpy()
+    y_rows[:, :n0] = readback(base_model._y_d[:n0])
     for s, nc in enumerate(nowcasts):
         y_rows[s, n0:n_new] = (
             np.asarray(nc.y, dtype=np.float64) - base_model._y_mean
@@ -372,20 +376,23 @@ def _forecast_with_nowcasts_shared_chol(
 ):
     """Host wrapper for the per-particle shared-Cholesky nowcast branch."""
     dev = base_model.device
-    x_row, y_rows, mask_old, mask_new = _scenario_buffers(base_model, nowcasts)
-    xs = base_model._normalize_dates(list(forecast_dates))
-    t = base_model._tensor
-    with torch.no_grad():
-        log_w, mu, chol = _shared_chol_moments(
-            base_model._types_d(), base_model._params_d,
-            base_model._log_noise_d, t(x_row), t(y_rows), t(mask_old),
-            t(mask_new), t(base_model.log_weight), t(xs))
+    with span("nowcast/rows"):
+        x_row, y_rows, mask_old, mask_new = _scenario_buffers(base_model,
+                                                              nowcasts)
+        xs = base_model._normalize_dates(list(forecast_dates))
+        t = base_model._tensor
+        args = (base_model._types_d(), base_model._params_d,
+                base_model._log_noise_d, t(x_row), t(y_rows), t(mask_old),
+                t(mask_new), t(base_model.log_weight), t(xs))
+    # one call gives the reweight and the predictive moments together
+    with span("nowcast/draws"), torch.no_grad():
+        log_w, mu, chol = _shared_chol_moments(*args)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(_scenario_seed_seq(
             base_model, -1, nowcasts, draw_seed).generate_state(1)[0]))
         samples = _shared_chol_sample(log_w, mu, chol, gen,
                                       int(draws_per_nowcast))
-    out = samples.cpu().numpy().astype(np.float64)
+        out = readback(samples).astype(np.float64)
     out = base_model._y_mean + base_model._y_std * out
     if verbose:
         logger.info(
@@ -447,47 +454,52 @@ def _forecast_with_nowcasts_batched(
     hmc_cfg = HMCConfig()
     noise_mu, noise_sigma, infer = base_model.noise_prior
     t = base_model._tensor
-    x_row, y_rows, mask_old, mask_new = _scenario_buffers(base_model, nowcasts)
-    cap = x_row.shape[0]
-    x_b = t(x_row).expand(R, cap)
-    y_b = t(np.repeat(y_rows, P, axis=0))
-    m_old = t(mask_old).expand(R, cap)
-    m_new = t(mask_new).expand(R, cap)
+    with span("nowcast/rows"):
+        x_row, y_rows, mask_old, mask_new = _scenario_buffers(base_model,
+                                                              nowcasts)
+        cap = x_row.shape[0]
+        x_b = t(x_row).expand(R, cap)
+        y_b = t(np.repeat(y_rows, P, axis=0))
+        m_old = t(mask_old).expand(R, cap)
+        m_new = t(mask_new).expand(R, cap)
 
-    # the particle state tiled across scenarios: row s * P + p
-    host_types = np.tile(base_model._host_types, (S, 1))
-    types_d = torch.as_tensor(host_types, device=dev)
-    params = base_model._params_d.repeat(S, 1, 1)
-    log_noise = base_model._log_noise_d.repeat(S)
-    eps_scale = base_model._eps_scale_d.repeat(S)
+        # the particle state tiled across scenarios: row s * P + p
+        host_types = np.tile(base_model._host_types, (S, 1))
+        types_d = torch.as_tensor(host_types, device=dev)
+        params = base_model._params_d.repeat(S, 1, 1)
+        log_noise = base_model._log_noise_d.repeat(S)
+        eps_scale = base_model._eps_scale_d.repeat(S)
 
     # the cached LML may be on a different (shuffled) buffer: both sides of
     # the add_data delta are evaluated on this one
-    with torch.no_grad():
-        if mesh is not None:
-            lml_old = lml_rows_sharded(types_d, params, log_noise, x_b, y_b,
-                                       m_old, mesh=mesh)
-            lml = lml_rows_sharded(types_d, params, log_noise, x_b, y_b,
-                                   m_new, mesh=mesh)
-        else:
-            lml_old = gp_lml_batched(types_d, params, log_noise, x_b, y_b,
-                                     m_old, DEFAULT_JITTER)
-            lml = gp_lml_batched(types_d, params, log_noise, x_b, y_b,
-                                 m_new, DEFAULT_JITTER)
-    log_w = np.tile(base_model.log_weight, S) + _reweight_delta(
-        lml_old.cpu().numpy().astype(np.float64),
-        lml.cpu().numpy().astype(np.float64))
+    with span("nowcast/reweight"):
+        with torch.no_grad():
+            if mesh is not None:
+                lml_old = lml_rows_sharded(types_d, params, log_noise, x_b,
+                                           y_b, m_old, mesh=mesh)
+                lml = lml_rows_sharded(types_d, params, log_noise, x_b, y_b,
+                                       m_new, mesh=mesh)
+            else:
+                lml_old = gp_lml_batched(types_d, params, log_noise, x_b,
+                                         y_b, m_old, DEFAULT_JITTER)
+                lml = gp_lml_batched(types_d, params, log_noise, x_b, y_b,
+                                     m_new, DEFAULT_JITTER)
+        log_w = np.tile(base_model.log_weight, S) + _reweight_delta(
+            readback(lml_old).astype(np.float64),
+            readback(lml).astype(np.float64))
 
     if ess_threshold > 0:
-        rng = np.random.default_rng(
-            _scenario_seed_seq(base_model, -2, nowcasts, draw_seed))
-        flat_idx, log_w, resampled = _resample_rows(rng, log_w, S, P,
-                                                    ess_threshold)
-        if resampled:
-            idx = torch.as_tensor(flat_idx, device=dev)
-            params, log_noise, lml, eps_scale, types_d = (
-                a[idx] for a in (params, log_noise, lml, eps_scale, types_d))
-            host_types = host_types[flat_idx]
+        with span("nowcast/resample"):
+            rng = np.random.default_rng(
+                _scenario_seed_seq(base_model, -2, nowcasts, draw_seed))
+            flat_idx, log_w, resampled = _resample_rows(rng, log_w, S, P,
+                                                        ess_threshold)
+            if resampled:
+                idx = torch.as_tensor(flat_idx, device=dev)
+                params, log_noise, lml, eps_scale, types_d = (
+                    a[idx] for a in (params, log_noise, lml, eps_scale,
+                                     types_d))
+                host_types = host_types[flat_idx]
 
     gen = _seeded_generator(dev, _scenario_seed_seq(
         base_model, -3, nowcasts, draw_seed).generate_state(1)[0])
@@ -499,64 +511,73 @@ def _forecast_with_nowcasts_batched(
         cfg = config_arrays(base_model.config, dev)
         anc = torch.as_tensor(ancestor_table(base_model.config.max_nodes),
                               device=dev)
-        if mesh is not None:
-            types_d, params, log_noise, lml, _, eps_scale = (
-                rejuvenation_sweep_sharded(
-                    types_d, params, log_noise, lml, x_b, y_b, m_new, gen,
-                    eps_scale, cfg, anc, mesh=mesh, n_mcmc=int(n_mcmc),
-                    n_hmc=int(n_hmc), **hmc_kw))
-        else:
-            types_d, params, log_noise, lml, _, eps_scale = (
-                rejuvenation_sweep(
-                    types_d, params, log_noise, lml, x_b, y_b, m_new, gen,
-                    cfg, anc, n_mcmc=int(n_mcmc), n_hmc=int(n_hmc),
-                    eps_scale=eps_scale, **hmc_kw))
-        host_types = types_d.cpu().numpy()
+        with span("nowcast/refresh"):
+            if mesh is not None:
+                types_d, params, log_noise, lml, _, eps_scale = (
+                    rejuvenation_sweep_sharded(
+                        types_d, params, log_noise, lml, x_b, y_b, m_new, gen,
+                        eps_scale, cfg, anc, mesh=mesh, n_mcmc=int(n_mcmc),
+                        n_hmc=int(n_hmc), **hmc_kw))
+            else:
+                types_d, params, log_noise, lml, _, eps_scale = (
+                    rejuvenation_sweep(
+                        types_d, params, log_noise, lml, x_b, y_b, m_new, gen,
+                        cfg, anc, n_mcmc=int(n_mcmc), n_hmc=int(n_hmc),
+                        eps_scale=eps_scale, **hmc_kw))
+            host_types = readback(types_d)
     elif n_hmc > 0:
-        mu, sg, act = (t(a) for a in prior_arrays(host_types,
-                                                  base_model.config))
-        if mesh is not None:
-            params, log_noise, lml, _, eps_scale = run_hmc_sharded(
-                types_d, params, log_noise, mu, sg, act, x_b, y_b, m_new,
-                gen, eps_scale, mesh=mesh, n_steps=int(n_hmc), **hmc_kw)
-        else:
-            params, log_noise, lml, _, eps_scale, _ = run_hmc(
-                types_d, params, log_noise, mu, sg, act, x_b, y_b, m_new,
-                gen, n_steps=int(n_hmc), eps_scale=eps_scale, **hmc_kw)
+        with span("nowcast/priors"):
+            mu, sg, act = (t(a) for a in prior_arrays(host_types,
+                                                      base_model.config))
+        with span("nowcast/refresh"):
+            if mesh is not None:
+                params, log_noise, lml, _, eps_scale = run_hmc_sharded(
+                    types_d, params, log_noise, mu, sg, act, x_b, y_b, m_new,
+                    gen, eps_scale, mesh=mesh, n_steps=int(n_hmc), **hmc_kw)
+            else:
+                params, log_noise, lml, _, eps_scale, _ = run_hmc(
+                    types_d, params, log_noise, mu, sg, act, x_b, y_b, m_new,
+                    gen, n_steps=int(n_hmc), eps_scale=eps_scale, **hmc_kw)
 
-    xs = t(base_model._normalize_dates(list(forecast_dates)))
-    logw_d = t(log_w.reshape(S, P) - log_w.reshape(S, P).max(1, keepdims=True))
-    if forecast_n_hmc is None:
-        with torch.no_grad():
-            comps = torch.multinomial(torch.softmax(logw_d, -1), D,
-                                      replacement=True, generator=gen)
-            rows = (comps + torch.arange(S, device=dev)[:, None] * P
-                    ).reshape(-1)                                # (S * D,)
-            # each row's predictive depends on that row alone, so only the
-            # drawn rows' are built
-            drawn, inv = torch.unique(rows, return_inverse=True)
-            mu, cov = gp_predict_batch(
-                types_d[drawn], params[drawn], log_noise[drawn], x_b[drawn],
-                y_b[drawn], m_new[drawn], xs, DEFAULT_JITTER, True)
-            chol = sampling_cholesky(cov)
-            eps = torch.randn(S * D, xs.shape[0], generator=gen, device=dev,
-                              dtype=mu.dtype)
-            samples = (mu[inv] + torch.einsum("rij,rj->ri", chol[inv],
-                                               eps)).T
-    else:
-        mu_pr, sg_pr, act_pr = (t(a) for a in prior_arrays(
-            host_types, base_model.config))
-        scan_kw = dict(n_scenarios=S, n_draws=D, n_hmc=int(forecast_n_hmc),
-                       **hmc_kw)
-        if mesh is not None:
-            samples, *_ = forecast_hmc_scan_sharded(
-                types_d, params, log_noise, mu_pr, sg_pr, act_pr, x_b, y_b,
-                m_new, xs, logw_d, gen, eps_scale, mesh=mesh, **scan_kw)
+    if forecast_n_hmc is not None:
+        with span("nowcast/priors"):
+            mu_pr, sg_pr, act_pr = (t(a) for a in prior_arrays(
+                host_types, base_model.config))
+    with span("nowcast/draws"):
+        xs = t(base_model._normalize_dates(list(forecast_dates)))
+        logw_d = t(log_w.reshape(S, P)
+                   - log_w.reshape(S, P).max(1, keepdims=True))
+        if forecast_n_hmc is None:
+            with torch.no_grad():
+                comps = torch.multinomial(torch.softmax(logw_d, -1), D,
+                                          replacement=True, generator=gen)
+                rows = (comps + torch.arange(S, device=dev)[:, None] * P
+                        ).reshape(-1)                            # (S * D,)
+                # each row's predictive depends on that row alone, so only
+                # the drawn rows' are built
+                drawn, inv = torch.unique(rows, return_inverse=True)
+                mu, cov = gp_predict_batch(
+                    types_d[drawn], params[drawn], log_noise[drawn],
+                    x_b[drawn], y_b[drawn], m_new[drawn], xs, DEFAULT_JITTER,
+                    True)
+                chol = sampling_cholesky(cov)
+                eps = torch.randn(S * D, xs.shape[0], generator=gen,
+                                  device=dev, dtype=mu.dtype)
+                samples = (mu[inv] + torch.einsum("rij,rj->ri", chol[inv],
+                                                   eps)).T
         else:
-            samples, *_ = nowcast_forecast_hmc_scan(
-                types_d, params, log_noise, mu_pr, sg_pr, act_pr, x_b, y_b,
-                m_new, xs, logw_d, gen, eps_scale, **scan_kw)
-    out = samples.cpu().numpy().astype(np.float64)
+            scan_kw = dict(n_scenarios=S, n_draws=D,
+                           n_hmc=int(forecast_n_hmc), **hmc_kw)
+            if mesh is not None:
+                samples, *_ = forecast_hmc_scan_sharded(
+                    types_d, params, log_noise, mu_pr, sg_pr, act_pr, x_b,
+                    y_b, m_new, xs, logw_d, gen, eps_scale, mesh=mesh,
+                    **scan_kw)
+            else:
+                samples, *_ = nowcast_forecast_hmc_scan(
+                    types_d, params, log_noise, mu_pr, sg_pr, act_pr, x_b,
+                    y_b, m_new, xs, logw_d, gen, eps_scale, **scan_kw)
+        out = readback(samples).astype(np.float64)
     out = base_model._y_mean + base_model._y_std * out
     if verbose:
         logger.info("Batched nowcast forecast: %d scenarios x %d draws", S, D)

@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.profiling import span
 from . import chol, megalml
 from .chol_mxu import mxu_supported, tri_inv
 from .cov import cov_fn
@@ -206,8 +207,19 @@ def gp_lml_batched(node_types, params, log_noise, x, y, mask,
 
     The diagonal augmentation and ``y * mask`` are built here, so their
     chain rules (d diag / d log_noise = mask·noise, d ym / d y = mask) compose
-    with the core's gradients for ``diagv`` and ``ym``.
+    with the core's gradients for ``diagv`` and ``ym``.  A call with grad
+    mode off is one ``lml/value`` span; with it on, the caller's
+    ``lml/grad`` (``inference/hmc.py::_value_and_grad``) holds the call.
     """
+    if torch.is_grad_enabled():
+        return _lml_batched(node_types, params, log_noise, x, y, mask,
+                            jitter)
+    with span("lml/value"):
+        return _lml_batched(node_types, params, log_noise, x, y, mask,
+                            jitter)
+
+
+def _lml_batched(node_types, params, log_noise, x, y, mask, jitter):
     P, n = params.shape[0], x.shape[-1]
     mask = mask.expand(P, n)
     ym = y.expand(P, n) * mask
