@@ -177,8 +177,8 @@ def _registers(log):
     """{kernel instantiation: [registers, spill store bytes]} from ptxas."""
     out, name, spill = {}, None, 0
     for line in log.splitlines():
-        m = re.search(r"entry function '\S*?((?:mega)?cov_(?:fwd|bwd)_kernel)"
-                      r"I(\S*?)E+v", line)
+        m = re.search(r"entry function '\S*?((?:mega)?cov_(?:fwd|bwd)_kernel"
+                      r"|megalml_(?:val|vag|bwd)_kernel)I(\S*?)E+v", line)
         if m:  # cov_bwd_kernelILi31ELi5ELi0ELb1EEEv... -> <31,5,0,1>
             args = (m.group(2).replace("ELi", ",").replace("ELb", ",")
                     .replace("Li", ""))

@@ -29,11 +29,16 @@ Phases (any failure exits nonzero before the final line):
    (K1/K2 at P = 200, n = 160 and 512, each beside its bound and the
    composed core at the same n, its yardstick; K3/K4/K5 at P = 200,
    n = 576, K4/K5 also at n = 160 and 2048 and on the daily fit's own
-   heap classes at 576) and K3's library call;
+   heap classes at 576) and K3's library call; then K1 split by kernel
+   (the factorisation, the backward walk's launches, the tile sum; by
+   ``torch.profiler``, in a process of its own) at P = 200, n = 160 and
+   512 on prior and fitted-like heap classes and on the refresh's 20,000
+   rows (``k1_walk_timing``);
 3. weekly: the ``bench.py`` workload through the port -- a 200-particle
    depth-5 SMC fit on a 150-week series (14 structure moves x 5 HMC x 5
    leapfrog per step) and a 100-scenario x 20-draw nowcast forecast --
-   scored by log-CRPS and 90% coverage;
+   scored by log-CRPS and 90% coverage, the fitted heap classes logged,
+   K1's backward walk held to two class-switched launches a call;
 4. daily: ``tools/daily_bench.py``'s ``daily_200p`` at seed 2 -- a
    200-particle depth-5 fit on 560 days (capacities 96 ... 576: K1/K2 up to
    512, the composed K4 -> K3 -> K5 path at 576; 8 moves x 5 HMC x 5
@@ -853,6 +858,90 @@ def _kernel_ms(ms, name, fn, warmup=3, runs=20):
     ms[name + "_spread"] = [dev_spread, host_spread]
 
 
+def _k1_split_ms(fn, warmup=1, runs=5):
+    """Device ms per call of each of K1's kernels -- the factorisation
+    (``megalml_vag_kernel``), the backward walk's launches (every
+    ``megalml_bwd_kernel`` instantiation) and the tile sum
+    (``reduce_tiles_kernel``) -- from ``torch.profiler``'s records of the
+    card over ``runs`` eager calls of ``fn``, and the walk's launches a
+    call (``bwd_launches``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    kinds = {"vag": "megalml_vag_kernel", "bwd": "megalml_bwd_kernel",
+             "reduce": "reduce_tiles_kernel"}
+    out = dict.fromkeys(kinds, 0.0)
+    launches = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        for key, kernel in kinds.items():
+            if kernel in e.name():
+                out[key] += e.duration_ns() / 1e6 / runs
+                launches += key == "bwd"
+    out["bwd_launches"] = launches / runs
+    return out
+
+
+def _refresh_rows(pop, S=100):
+    """The nowcast refresh's K1 operands at the weekly capacity: a
+    population of 200 rows tiled over S scenarios (20,000 rows)."""
+    return tuple(a.repeat(S, *[1] * (a.dim() - 1)).contiguous() for a in pop)
+
+
+def k1_walk_timing():
+    """K1's kernels by the device's clock at the shapes the backward walk
+    runs: P = 200 at n = 160 (the weekly fit's largest capacity) and 512
+    (K1's largest, the daily fit's), on the K1 timing population (prior
+    trees) and on populations with a fitted ensemble's heap classes
+    (``FITTED_WEEKLY_CLASSES`` at 160, ``FITTED_DAILY_CLASSES`` at 512),
+    and the refresh's 20,000 rows at n = 160 (the weekly-fitted
+    population tiled over 100 scenarios).  For each: ms of the whole call
+    (``_time_ms``) and its split by kernel (``_k1_split_ms``)."""
+    from nowcastautogp_tpu_torch.ops import megalml
+
+    pops = {"n160_prior": (_population(200, 160, seed=7), (3, 20)),
+            "n160_fitted": (_population_of(FITTED_WEEKLY_CLASSES, 160, 5),
+                            (3, 20)),
+            "n512_prior": (_population(200, 512, seed=4), (1, 5)),
+            "n512_fitted": (_population_of(FITTED_DAILY_CLASSES, 512, 5),
+                            (1, 5))}
+    pops["rows20000_n160_fitted"] = (_refresh_rows(pops["n160_fitted"][0]),
+                                     (1, 3))
+    out = {}
+    for tag, (args, (warmup, runs)) in pops.items():
+        def fn():
+            return megalml.megalml_vag(*args)
+
+        ms, spread = _time_ms(fn, warmup, runs)
+        out[tag] = {"ms": ms, "spread": spread,
+                    "classes": _class_histogram(args[0]),
+                    **_k1_split_ms(fn, 1, runs)}
+        log(f"K1 walk {tag}: {out[tag]}")
+    return out
+
+
+def k1_walk_timing_apart():
+    """``k1_walk_timing`` in a process of its own.  In one process, a
+    ``torch.profiler`` run after an earlier one and other work on the card
+    lost kernel records: phase 7's ``device_trace`` saw none, and a K1
+    split read 1.7 walk launches a call where 2 ran."""
+    out = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.k1_walk_timing()))"],
+        cwd=ROOT, stdout=subprocess.PIPE, text=True)
+    check(out.returncode == 0, f"k1_walk_timing exited {out.returncode}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def _bounds(types, n, m=None, sym=True):
     """Each kernel's (bound ms, "bytes" or "operations") at P particles of
     heaps ``types`` and capacity n (K7F/K7B: n x m points; ``sym``:
@@ -1116,7 +1205,10 @@ def weekly(seed=2, n_particles=200, n_train=150, n_scenarios=100,
            draws_per=20, horizon=8):
     """Phase 3; returns its results and, for phase 6, the fitted model and
     its nowcast inputs."""
+    import torch
+
     import nowcastautogp_tpu_torch as ngp
+    from nowcastautogp_tpu_torch.ops import megalml
 
     ctx = _weekly_nowcasts(ngp, seed, n_train, n_scenarios, horizon)
     data, inv, ncs, f_dates = (ctx[k] for k in ("data", "inv", "ncs",
@@ -1145,14 +1237,21 @@ def weekly(seed=2, n_particles=200, n_train=150, n_scenarios=100,
     check((launches["K1"], launches["K2"]) == (3640, 150),
           f"weekly K1/K2 launches {launches['K1']}/{launches['K2']}, "
           "expected 3640/150")
+    # capacities up to 160 at P = 200: under 4,096 blocks, so every K1
+    # call's backward walk is two class-switched launches
+    check(megalml.K1_BWD_LAUNCHES == 2 * 3640,
+          f"weekly K1 backward-walk launches {megalml.K1_BWD_LAUNCHES}, "
+          "expected 2 x 3640")
     check(launches["K4"] > 0, "K4 was not launched on the weekly path")
     crps, cover90 = _score(ngp, fc, ctx["truth"])
     ctx["model"] = model
+    classes = _class_histogram(torch.as_tensor(model._host_types))
+    log(f"weekly: fitted heap classes {classes}")
     # the formula counts the device engine's calls (3,650 / 10); this host
     # engine's fit makes 3,640 / 150
     return {"fit_s": fit_s, "nowcast_s": nowcast_s, "log_crps": crps,
             "coverage90": cover90, "fit_sha256": _fingerprint(model),
-            "launches": launches,
+            "launches": launches, "heap_classes": classes,
             "flops": _fit_cost(ngp, model, n_train, 0.1, 14, 5, fit_s)}, ctx
 
 
@@ -1192,6 +1291,7 @@ def daily(seed=2, n_particles=200, n_train=560, horizon=28, draws=2000):
     import torch
 
     import nowcastautogp_tpu_torch as ngp
+    from nowcastautogp_tpu_torch.ops import megalml
 
     dates, obs, data, fwd, inv = _daily_data(ngp, seed, n_train, horizon)
     _reset_counters()
@@ -1203,7 +1303,9 @@ def daily(seed=2, n_particles=200, n_train=560, horizon=28, draws=2000):
     fit_launches = _counters()
     fit_sha256 = _fingerprint(model)
     classes = _class_histogram(torch.as_tensor(model._host_types))
-    log(f"daily: heap classes of the fitted ensemble: {classes}")
+    log(f"daily: heap classes of the fitted ensemble: {classes}; K1's "
+        f"backward walk {megalml.K1_BWD_LAUNCHES} launches over "
+        f"{fit_launches['K1']} calls")
     t0 = time.time()
     fc = ngp.forecast(model, dates[n_train:], draws, inv_transformation=inv)
     _sync()
@@ -2050,6 +2152,7 @@ def main():
     phases["parity"] = time.time() - t0
     t0 = time.time()
     ms, bounds = kernel_timing()
+    walk = k1_walk_timing_apart()
     phases["timing"] = time.time() - t0
     log(f"ms per launch: {json.dumps(ms)}")
     t0 = time.time()
@@ -2153,7 +2256,7 @@ def main():
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": ms[lib] if lib else None, **extra.get(k, {})})
-    print(json.dumps({"phase_s": phases, "kernel_ms": ms,
+    print(json.dumps({"phase_s": phases, "kernel_ms": ms, "k1_walk": walk,
                       "bounds_ms": bounds, "weekly": wk, "daily": dy,
                       "pallas": pw, "nowcast": nc, "panel": pn,
                       "mesh_large_n": m8}))

@@ -1,7 +1,11 @@
-// Symmetric, class-walked covariance tiles shared by the covariance kernels:
+// Symmetric, class-walked covariance tiles shared by the covariance kernels,
 // cov.cu (K7F/K7B, one tree's K(x1, x2), n, m <= 512) and megacov.cu (K4/K5,
-// K(x_p, x_p), n <= 4096).  Each source includes this header and
-// instantiates what it launches; its own C entry points check its envelope.
+// K(x_p, x_p), n <= 4096), and by K1's backward walk in megalml.cu (the
+// VJP of K(x_p, x_p) under the LML's cotangent, n <= 512).  Each source
+// includes this header and instantiates what it launches; its own C entry
+// points check its envelope.  K1 takes the tiles, the class walk and the
+// launch plan with its own cotangent and double partials (megalml.cu);
+// K5/K7B's DkCotangent reads a dK buffer.
 //
 // What bounds them.  The forward writes P n m floats, the VJP reads as many;
 // at the fits' shapes that is microseconds of memory time.  The walk is what
@@ -20,7 +24,7 @@
 //   and its transpose through shared memory, so both stores coalesce.  The
 //   VJP folds the cotangent, w_ij = dK_ij + dK_ji below the diagonal and
 //   dK_ii on it, so an asymmetric dK stays right; both dK tiles are staged
-//   in shared memory.
+//   in shared memory (K1 stages its folded cotangent's one tile).
 // * General path: tiles of 32 rows by TC columns, TC = 32 or, for a
 //   narrow m, the next power of two >= m, so K(x, xs) at m = 8 fills every
 //   lane (one element a thread) and no element index is divided by m.
@@ -47,10 +51,10 @@
 //
 // Each VJP block reduces its accumulators in a fixed order to one partial
 // per tile (zeros past its class), and reduce_partials_kernel sums a
-// particle's tiles in tile order: no float atomics, so both kernels are
-// deterministic, and the VJP's launch plan changes no bit.  x1 and x2 are
-// each per-particle (row stride n or m) or shared by every particle
-// (stride 0).
+// particle's tiles in tile order (K1: in double, its own reduction): no
+// float atomics, so every VJP is deterministic, and its launch plan
+// changes no bit.  x1 and x2 are each per-particle (row stride n or m) or
+// shared by every particle (stride 0).
 //
 // Everything here is in the unnamed namespace, as reduce_partials_kernel
 // is: each including source gets its own copy.
@@ -241,74 +245,99 @@ struct ColumnAcc {
   __device__ Slot operator[](int k) const { return Slot{p + 3 * k * THREADS}; }
 };
 
-// Every element of the tile swept into acc with its (folded) cotangent.
-template <int NC, class Acc>
+// The cotangent of K5/K7B, a general dK: read from global memory on the
+// general path; on the symmetric path staged in shared memory (da[r][c] =
+// dK[I + r][J + c], db[r][c] = dK[J + r][I + c]) and folded, w_ij = dK_ij
+// + dK_ji below the diagonal and dK_ii on it, so an asymmetric dK stays
+// right.
+struct DkCotangent {
+  const float (*da)[TILE + 1];
+  const float (*db)[TILE + 1];
+  const float* Dp;
+  int m;
+
+  __device__ float operator()(const Tile& tl, int r, int c) const {
+    if (!tl.sym) return Dp[static_cast<size_t>(tl.I + r) * m + tl.J + c];
+    if (tl.diag) return r == c ? da[r][c] : da[r][c] + da[c][r];
+    return da[r][c] + db[c][r];
+  }
+};
+
+// Every element of the tile swept into acc with its (folded) cotangent
+// w = cot(tl, r, c).
+template <int NC, class Cot, class Acc>
 __device__ __forceinline__ void sweep_tile(const Node* nd, const Tile& tl,
                                            const float* xr, const float* xc,
-                                           const float (*da)[TILE + 1],
-                                           const float (*db)[TILE + 1],
-                                           const float* Dp, int m, Acc& acc) {
+                                           const Cot& cot, Acc& acc) {
 #pragma unroll 1
   for (int q = threadIdx.x; q < tl.count; q += THREADS) {
     int r, c;
     if (!tl.at(q, r, c)) continue;
-    float w;
-    if (!tl.sym) {
-      w = Dp[static_cast<size_t>(tl.I + r) * m + tl.J + c];
-    } else if (tl.diag) {
-      w = r == c ? da[r][c] : da[r][c] + da[c][r];
-    } else {
-      w = da[r][c] + db[c][r];
-    }
+    const float w = cot(tl, r, c);
     walk_bwd<NC, true>(fresh_nodes(nd), xr[r], xc[c], w, acc);
   }
 }
 
 // VJP body for heap class NC: the tile's 3 NC sums written to out[0 ..
-// 3 NC), in registers (SMEM false) or in shared memory s_acc.
-template <int NC, bool SMEM>
+// 3 NC), in registers (SMEM false) or in shared memory s_acc.  Each thread
+// sums its elements in float; the threads are summed in T, the partial's
+// type.
+template <int NC, bool SMEM, class Cot, class T>
 __device__ __forceinline__ void bwd_tile(const Node* nd, const Tile& tl,
                                          const float* xr, const float* xc,
-                                         const float (*da)[TILE + 1],
-                                         const float (*db)[TILE + 1],
-                                         const float* Dp, int m, float* s_acc,
-                                         float* out) {
+                                         const Cot& cot, float* s_acc,
+                                         T* out) {
   if constexpr (SMEM) {
     const int tid = threadIdx.x;
     for (int q = 0; q < 3 * NC; ++q) s_acc[q * THREADS + tid] = 0.0f;
     ColumnAcc acc{s_acc + tid};
-    sweep_tile<NC>(nd, tl, xr, xc, da, db, Dp, m, acc);
+    sweep_tile<NC>(nd, tl, xr, xc, cot, acc);
     __syncthreads();
     // column sums in a fixed order: warp w takes q = w, w + WARPS, ...
     const int lane = tid & 31, warp = tid >> 5;
     for (int q = warp; q < 3 * NC; q += WARPS) {
-      float s = 0.0f;
+      T s = 0;
 #pragma unroll
       for (int i = 0; i < WARPS; ++i) s += s_acc[q * THREADS + 32 * i + lane];
       s = warp_sum(s);
       if (lane == 0) out[q] = s;
     }
   } else {
-    __shared__ float s_red[WARPS][3 * NC];
+    __shared__ T s_red[WARPS][3 * NC];
     float acc[NC][3];
 #pragma unroll
     for (int k = 0; k < NC; ++k) acc[k][0] = acc[k][1] = acc[k][2] = 0.0f;
-    sweep_tile<NC>(nd, tl, xr, xc, da, db, Dp, m, acc);
+    sweep_tile<NC>(nd, tl, xr, xc, cot, acc);
     block_partial<NC, WARPS>(acc, s_red, out);
   }
 }
 
 // Class NC's body where the launch takes classes LO ... HI.
-template <int NC, int LO, int HI>
+template <int NC, int LO, int HI, class Cot, class T>
 __device__ __forceinline__ void bwd_class(const Node* nd, const Tile& tl,
                                           const float* xr, const float* xc,
-                                          const float (*da)[TILE + 1],
-                                          const float (*db)[TILE + 1],
-                                          const float* Dp, int m, float* s_acc,
-                                          float* out) {
+                                          const Cot& cot, float* s_acc,
+                                          T* out) {
   if constexpr (LO <= NC && NC <= HI)
-    bwd_tile<NC, (HI > REG_CLASS_MAX)>(nd, tl, xr, xc, da, db, Dp, m, s_acc,
-                                       out);
+    bwd_tile<NC, (HI > REG_CLASS_MAX)>(nd, tl, xr, xc, cot, s_acc, out);
+}
+
+// A VJP block's tile partial, out[0 .. 3 cls), for its tree of heap class
+// cls, where the launch takes classes LO ... HI: that class's body.  The
+// kernel writes the zeros past the class.
+template <int N, int LO, int HI, class Cot, class T>
+__device__ __forceinline__ void bwd_classes(int cls, const Node* nd,
+                                            const Tile& tl, const float* xr,
+                                            const float* xc, const Cot& cot,
+                                            float* s_acc, T* out) {
+  switch (cls) {
+    case 1: bwd_class<1, LO, HI>(nd, tl, xr, xc, cot, s_acc, out); break;
+    case 3: bwd_class<3, LO, HI>(nd, tl, xr, xc, cot, s_acc, out); break;
+    case 7: bwd_class<7, LO, HI>(nd, tl, xr, xc, cot, s_acc, out); break;
+    case 15: bwd_class<15, LO, HI>(nd, tl, xr, xc, cot, s_acc, out); break;
+    case 31: bwd_class<31, LO, HI>(nd, tl, xr, xc, cot, s_acc, out); break;
+    case 63: bwd_class<63, LO, HI>(nd, tl, xr, xc, cot, s_acc, out); break;
+  }
 }
 
 // The VJP, pass 1, for the trees of heap classes LO ... HI, all on one side
@@ -347,14 +376,8 @@ cov_bwd_kernel(int n, int m, int sym, const int* __restrict__ types,
   }
   __syncthreads();
   float* out = partial + (static_cast<size_t>(p) * gridDim.x + blockIdx.x) * 3 * N;
-  switch (cls) {
-    case 1: bwd_class<1, LO, HI>(nd, tl, xr, xc, da, db, Dp, m, s_acc, out); break;
-    case 3: bwd_class<3, LO, HI>(nd, tl, xr, xc, da, db, Dp, m, s_acc, out); break;
-    case 7: bwd_class<7, LO, HI>(nd, tl, xr, xc, da, db, Dp, m, s_acc, out); break;
-    case 15: bwd_class<15, LO, HI>(nd, tl, xr, xc, da, db, Dp, m, s_acc, out); break;
-    case 31: bwd_class<31, LO, HI>(nd, tl, xr, xc, da, db, Dp, m, s_acc, out); break;
-    case 63: bwd_class<63, LO, HI>(nd, tl, xr, xc, da, db, Dp, m, s_acc, out); break;
-  }
+  bwd_classes<N, LO, HI>(cls, nd, tl, xr, xc, DkCotangent{da, db, Dp, m},
+                         s_acc, out);
   for (int q = 3 * cls + tid; q < 3 * N; q += THREADS) out[q] = 0.0f;
 }
 
@@ -375,54 +398,75 @@ int launch_fwd(const CovArgs& a, float* K, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// One VJP pass-1 launch for classes LO ... HI.  Classes above
-// REG_CLASS_MAX get their shared-memory columns, 3 HI THREADS floats; the
-// attribute is set before every launch, since it is per device.
-template <int N, int LO, int HI>
-int launch_bwd_pass(const CovArgs& a, const float* dK, float* partial,
-                    cudaStream_t s) {
+// One VJP pass-1 launch of kernel, a pass-1 kernel instantiated for
+// classes up to HI, on grid.  Classes above REG_CLASS_MAX get their
+// shared-memory columns, 3 HI THREADS floats; the attribute is set before
+// every launch, since it is per device.
+template <int HI, class... P, class... A>
+int launch_pass(void (*kernel)(P...), dim3 grid, cudaStream_t s,
+                A... args) {
   size_t smem = 0;
   if constexpr (HI > REG_CLASS_MAX) {
     smem = sizeof(float) * 3 * HI * THREADS;
     const cudaError_t attr = cudaFuncSetAttribute(
-        cov_bwd_kernel<N, LO, HI>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (attr != cudaSuccess) return static_cast<int>(attr);
   }
-  cov_bwd_kernel<N, LO, HI><<<dim3(n_tiles(a.n, a.m, a.sym), a.P), THREADS,
-                              smem, s>>>(
-      a.n, a.m, a.sym, a.types, a.params, a.x1, a.s1, a.x2, a.s2, dK,
-      partial);
+  kernel<<<grid, THREADS, smem, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One launch per heap class C, 2 C + 1, ... <= N.
-template <int N, int C = 1>
-int launch_bwd_classes(const CovArgs& a, const float* dK, float* partial,
-                       cudaStream_t s) {
-  const int e = launch_bwd_pass<N, C, C>(a, dK, partial, s);
+template <int N, class Pass, int C = 1>
+int launch_classes(const Pass& pass) {
+  const int e = pass.template launch<C, C>();
   if (e != 0) return e;
   if constexpr (2 * C + 1 <= N)
-    return launch_bwd_classes<N, 2 * C + 1>(a, dK, partial, s);
+    return launch_classes<N, Pass, 2 * C + 1>(pass);
   return 0;
 }
+
+// Pass 1 of a VJP (K5, K7B and K1's backward walk) by its grid's size,
+// blocks = P x tiles: one launch per heap class from CLASS_LAUNCH_BLOCKS,
+// else one class-switched launch for classes up to REG_CLASS_MAX and one
+// for the larger ones.  pass.launch<LO, HI>() makes the launch for classes
+// LO ... HI.  ops/megalml.py::vjp_launches mirrors the count.
+template <int N, class Pass>
+int launch_plan(long blocks, const Pass& pass) {
+  constexpr int REG_HI = N < REG_CLASS_MAX ? N : REG_CLASS_MAX;
+  if (blocks >= CLASS_LAUNCH_BLOCKS) return launch_classes<N>(pass);
+  int e = pass.template launch<1, REG_HI>();
+  if constexpr (N > REG_CLASS_MAX)
+    if (e == 0) e = pass.template launch<2 * REG_CLASS_MAX + 1, N>();
+  return e;
+}
+
+// K5/K7B's pass-1 launch for classes LO ... HI.
+template <int N>
+struct CovBwdPass {
+  const CovArgs& a;
+  const float* dK;
+  float* partial;
+  cudaStream_t s;
+
+  template <int LO, int HI>
+  int launch() const {
+    return launch_pass<HI>(cov_bwd_kernel<N, LO, HI>,
+                           dim3(n_tiles(a.n, a.m, a.sym), a.P), s, a.n, a.m,
+                           a.sym, a.types, a.params, a.x1, a.s1, a.x2, a.s2,
+                           dK, partial);
+  }
+};
 
 // The VJP: pass 1 by the grid's size, then the tile partials summed in tile
 // order.  partial holds n_tiles(n, m, sym) x 3 N floats per particle.
 template <int N>
 int launch_bwd(const CovArgs& a, const float* dK, float* dparams,
                float* partial, cudaStream_t s) {
-  constexpr int REG_HI = N < REG_CLASS_MAX ? N : REG_CLASS_MAX;
   const int T = n_tiles(a.n, a.m, a.sym);
-  int e;
-  if (static_cast<long>(a.P) * T >= CLASS_LAUNCH_BLOCKS) {
-    e = launch_bwd_classes<N>(a, dK, partial, s);
-  } else {
-    e = launch_bwd_pass<N, 1, REG_HI>(a, dK, partial, s);
-    if constexpr (N > REG_CLASS_MAX)
-      if (e == 0)
-        e = launch_bwd_pass<N, 2 * REG_CLASS_MAX + 1, N>(a, dK, partial, s);
-  }
+  const int e = launch_plan<N>(static_cast<long>(a.P) * T,
+                               CovBwdPass<N>{a, dK, partial, s});
   if (e != 0) return e;
   const int total = a.P * 3 * N;
   reduce_partials_kernel<<<(total + 255) / 256, 256, 0, s>>>(a.P, T, 3 * N,

@@ -12,9 +12,10 @@
 //
 // Every kernel that includes this header runs the same node bodies, so the
 // covariance the LML kernels assemble and the one K4 returns are the same
-// float function of (params, x).  The covariance kernels (covtile.cuh: K4/K5
-// and K7F/K7B) walk only the first heap_class slots of each tree and skip
-// its empty slots (SKIP_EMPTY); K1/K2 walk all N slots.
+// float function of (params, x).  The tile walks of covtile.cuh (K4/K5,
+// K7F/K7B and K1's backward walk) go only as far as each tree's heap_class
+// and skip its empty slots (SKIP_EMPTY); K1/K2's covariance walks all N
+// slots.
 
 #pragma once
 
@@ -195,7 +196,8 @@ __device__ __forceinline__ void walk_bwd(const Node* nd, float xi, float xj,
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <class T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -231,24 +233,25 @@ __device__ __forceinline__ void load_nodes(Node* nd, int p, const int* types,
   }
 }
 
-// Block partials of the walk's 3N accumulators: warp shuffles, then the
-// warps in order, written to out[0 .. 3N).  s_red is shared scratch.
-template <int N, int WARPS>
+// Block partials of the walk's 3N accumulators, summed in T: warp
+// shuffles, then the warps in order, written to out[0 .. 3N).  s_red is
+// shared scratch.
+template <int N, int WARPS, class T>
 __device__ __forceinline__ void block_partial(float (&acc)[N][3],
-                                              float (&s_red)[WARPS][3 * N],
-                                              float* out) {
+                                              T (&s_red)[WARPS][3 * N],
+                                              T* out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
-      const float s = warp_sum(acc[k][q]);
+      const T s = warp_sum(static_cast<T>(acc[k][q]));
       if (lane == 0) s_red[warp][3 * k + q] = s;
     }
   }
   __syncthreads();
   for (int q = threadIdx.x; q < 3 * N; q += 32 * WARPS) {
-    float s = 0.0f;
+    T s = 0;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) s += s_red[w][q];
     out[q] = s;

@@ -31,15 +31,30 @@
 // engine's blocked inverse and the lower triangle of A^-1 = XT XT^T with
 // the same tiles, as the TPU kernel formed them as matrix products.
 //
-// The backward walk is a second launch (megalml_bwd_kernel, K5's pattern):
-// one block per 64 x 64 lower tile of a particle, so it runs at K5's
-// occupancy instead of setting the registers of the factorisation (the
-// walk's 3N accumulators held K1 at 255 registers, one block an SM).  Each
-// thread sums its 16 elements in float, the warp tree sums lanes in float,
-// and warps and tiles are added in double in a fixed order: on an
-// ill-conditioned particle the cotangent's entries are large and cancel,
-// and a float running sum over a whole row of tiles loses the gradient.
-// Both launches count as one K1 call.
+// The backward walk is covtile.cuh's VJP (megalml_bwd_kernel, the tiles,
+// class walk and launch plan K5 and K7B run) under K1's own cotangent: one
+// block per lower 32 x 32 tile of a particle (a diagonal tile walks only its
+// lower elements: at n = 160 all 12,880 walked elements are live), each tree
+// walked only as far as its heap class with its empty slots skipped, the
+// nodes re-read from shared memory per element (fresh_nodes), classes up to
+// 15 accumulating in registers and 31/63 in shared-memory columns, at most
+// 128 registers, two blocks an SM (at N = 31: 61 registers for classes
+// 1 and 3, 74 for 7, 119 for 15, 121 for 31, 120 for one launch of classes
+// 1 to 15, no spill; class 63, depth-6 trees only, spills about 850 bytes,
+// as K5's does).  The launches follow the grid's size, P x tiles: two
+// class-switched launches below CLASS_LAUNCH_BLOCKS (at P = 200 up to
+// n = 160: the weekly fit, the daily fit's first capacities), one per heap
+// class from there (the daily fit from n = 224, the nowcast refresh's
+// 20,000 rows at n = 160).
+// The cotangent w = 0.5 (alpha alpha^T - A^-1) o (m m^T), weight 2 below
+// the diagonal, is formed per tile in shared memory from alpha and the
+// lower triangle of A^-1; no dK buffer is written.  Each thread sums its
+// elements of a tile (four) in float; the threads, the tile partials and
+// a particle's tiles are summed in double, in a fixed order
+// (reduce_tiles_kernel for the tiles): on an ill-conditioned particle the
+// cotangent's entries are large and cancel, and a float running sum over
+// many elements loses the gradient.  All the launches count as one K1
+// call.
 //
 // What bounds it.  The linear algebra is n^3 / 3 flops each for the
 // factorisation, the inverse and the Gram product (K2: the factorisation
@@ -62,17 +77,15 @@
 // caller's -1e10 guard then rejects the particle.
 
 #include "chol_blocked.cuh"
-#include "heapwalk.cuh"
+#include "covtile.cuh"
 
 namespace {
 
-using namespace heapwalk;
-
-constexpr int THREADS = cholblk::THREADS;
-constexpr int WARPS = THREADS / 32;
+// The factorisation kernels' block (the engine's); the backward walk runs
+// covtile.cuh's THREADS.
+constexpr int ENGINE_THREADS = cholblk::THREADS;
+constexpr int ENGINE_WARPS = ENGINE_THREADS / 32;
 constexpr int MAX_N = 512;
-constexpr int TILE = 64;        // backward-walk tile
-constexpr int ROWS_PER_PASS = THREADS / TILE;
 
 // Deterministic block sum of f(i) over i < n: lanes of warp 0 sum strided
 // entries in order, then a fixed shuffle tree.  Result valid in warp 0.
@@ -99,9 +112,9 @@ template <int N>
 __device__ __forceinline__ void load_particle(
     Shared& sh, int p, int n, const int* types, const float* params,
     const float* diagv, const float* mask, const float* x, const float* ym) {
-  load_nodes<N, THREADS>(sh.nd, p, types, params);
+  load_nodes<N, ENGINE_THREADS>(sh.nd, p, types, params);
   const size_t o = static_cast<size_t>(p) * n;
-  for (int i = threadIdx.x; i < n; i += THREADS) {
+  for (int i = threadIdx.x; i < n; i += ENGINE_THREADS) {
     sh.x[i] = x[o + i];
     sh.m[i] = mask[o + i];
     sh.dg[i] = diagv[o + i];
@@ -122,7 +135,7 @@ __device__ __noinline__ void value_steps(LmlSmem& s, float* A, float* D, int n,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // 1. covariance + assembly, lower triangle by rows
-  for (int i = warp; i < n; i += WARPS) {
+  for (int i = warp; i < n; i += ENGINE_WARPS) {
     const float xi = sh.x[i], mi = sh.m[i];
     for (int j = lane; j <= i; j += 32) {
       const float xj = sh.x[j];
@@ -154,7 +167,7 @@ __device__ __noinline__ void value_steps(LmlSmem& s, float* A, float* D, int n,
 // K2 (replaces ops/pallas_megalml.py::_megalml_val_kernel): value only.
 // 150 launches per weekly fit (reweights and proposal LMLs).
 template <int N>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(ENGINE_THREADS, 2)
 megalml_val_kernel(int n, const int* __restrict__ types,
                    const float* __restrict__ params,
                    const float* __restrict__ diagv,
@@ -175,7 +188,7 @@ megalml_val_kernel(int n, const int* __restrict__ types,
 // of A^-1 = XT XT^T (into ws1, over L) and gdiag.  One launch per HMC
 // leapfrog, 3,640 per weekly fit.
 template <int N>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(ENGINE_THREADS, 2)
 megalml_vag_kernel(int n, const int* __restrict__ types,
                    const float* __restrict__ params,
                    const float* __restrict__ diagv,
@@ -198,7 +211,7 @@ megalml_vag_kernel(int n, const int* __restrict__ types,
 
   // 4. alpha = L^-T t (blocked back substitution)
   cholblk::Smem& eng = s.eng;
-  for (int i = tid; i < n; i += THREADS) sh.a[i] = sh.t[i];
+  for (int i = tid; i < n; i += ENGINE_THREADS) sh.a[i] = sh.t[i];
   cholblk::back_substitute(eng, L, sh.a, n);
 
   // 5. XT = L^-T (upper) from L's panels and the kept diagonal inverses
@@ -206,33 +219,32 @@ megalml_vag_kernel(int n, const int* __restrict__ types,
 
   // 6. lower triangle of A^-1 = XT XT^T into ws1 (L is no longer needed)
   cholblk::lower_gram(eng, XT, L, n);
-  for (int j = tid; j < n; j += THREADS) {
+  for (int j = tid; j < n; j += ENGINE_THREADS) {
     const size_t o = static_cast<size_t>(p) * n + j;
     gdiag[o] = 0.5f * (sh.a[j] * sh.a[j] - L[static_cast<size_t>(j) * n + j]);
     alpha_out[o] = sh.a[j];
   }
 }
 
-// Lower 64 x 64 tile t of the triangle (row-major over tiles bi >= bj).
-__device__ __forceinline__ void tile_coords(int t, int& bi, int& bj) {
-  int b = static_cast<int>((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
-  while (b * (b + 1) / 2 > t) --b;
-  while ((b + 1) * (b + 2) / 2 <= t) ++b;
-  bi = b;
-  bj = t - b * (b + 1) / 2;
-}
+// K1's folded cotangent, staged a tile at a time in shared memory.
+struct StagedCotangent {
+  const float (*w)[TILE + 1];
 
-int n_tiles(int n) {
-  const int nt = (n + TILE - 1) / TILE;
-  return nt * (nt + 1) / 2;
-}
+  __device__ float operator()(const Tile&, int r, int c) const {
+    return w[r][c];
+  }
+};
 
-// K1, second launch: the backward walk of one lower tile (bi, bj) of
-// particle blockIdx.y with the folded cotangent
-// w = 0.5 (alpha alpha^T - A^-1) o (m m^T), weight 2 below the diagonal;
-// writes the tile's 3N double partial sums to partial[p][tile][:].
-template <int N>
-__global__ void __launch_bounds__(THREADS)
+// K1, second launch, for the trees of heap classes LO ... HI, all on one
+// side of REG_CLASS_MAX (covtile.cuh's launch plan): the backward walk of
+// one lower 32 x 32 tile of particle blockIdx.y, whose block exits first if
+// its tree is of another class.  The tile's folded cotangent
+// w = 0.5 (alpha alpha^T - A^-1) o (m m^T), weight 2 below the diagonal, is
+// formed from the first launch's alpha and the lower triangle of A^-1
+// (ws1) into shared memory; the tile's 3 N sums go to partial[p][tile][:]
+// in double, zeros past the class.
+template <int N, int LO, int HI>
+__global__ void __launch_bounds__(THREADS, 2)
 megalml_bwd_kernel(int n, const int* __restrict__ types,
                    const float* __restrict__ params,
                    const float* __restrict__ mask,
@@ -240,65 +252,36 @@ megalml_bwd_kernel(int n, const int* __restrict__ types,
                    const float* __restrict__ alpha,
                    const float* __restrict__ Ainv,
                    double* __restrict__ partial) {
-  __shared__ Node nd[N];
-  __shared__ float xr[TILE], xc[TILE], mr[TILE], mc[TILE], ar[TILE], ac[TILE];
-  __shared__ double s_acc[WARPS][3 * N];
+  static_assert((LO > REG_CLASS_MAX) == (HI > REG_CLASS_MAX),
+                "a launch sums in registers or in shared memory");
   const int p = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  int bi, bj;
-  tile_coords(blockIdx.x, bi, bj);
-  const int I = bi * TILE, J = bj * TILE;
+  const int cls = tree_class<N>(types, p);
+  if (cls < LO || cls > HI) return;  // another launch's block
+  extern __shared__ float s_acc[];  // HI > REG_CLASS_MAX: [3 HI][THREADS]
+  __shared__ Node nd[N];
+  __shared__ float xr[TILE], xc[TILE];
+  __shared__ float w[TILE][TILE + 1];  // lower triangle on a diagonal tile
+  const Tile tl(blockIdx.x, n, n, true);
   const size_t o = static_cast<size_t>(p) * n;
   const float* Ap = Ainv + o * n;
-
   load_nodes<N, THREADS>(nd, p, types, params);
-  if (tid < TILE) {
-    const bool in = I + tid < n;
-    xr[tid] = in ? x[o + I + tid] : 0.0f;
-    mr[tid] = in ? mask[o + I + tid] : 0.0f;
-    ar[tid] = in ? alpha[o + I + tid] : 0.0f;
-  } else if (tid < 2 * TILE) {
-    const int c = tid - TILE;
-    const bool in = J + c < n;
-    xc[c] = in ? x[o + J + c] : 0.0f;
-    mc[c] = in ? mask[o + J + c] : 0.0f;
-    ac[c] = in ? alpha[o + J + c] : 0.0f;
-  }
-  __syncthreads();
-
-  float acc[N][3];
-#pragma unroll
-  for (int k = 0; k < N; ++k) acc[k][0] = acc[k][1] = acc[k][2] = 0.0f;
-  const int c = tid % TILE, j = J + c;
-#pragma unroll 1
-  for (int r = tid / TILE; r < TILE; r += ROWS_PER_PASS) {
-    const int i = I + r;
-    if (i < n && j < n && i >= j) {
+  load_points(tl, x + o, x + o, xr, xc);
+  for (int q = tid; q < TILE * TILE; q += THREADS) {
+    const int r = q >> TILE_LG, c = q & (TILE - 1);
+    const int i = tl.I + r, j = tl.J + c;
+    float v = 0.0f;
+    if (r < tl.rows && c < tl.cols && i >= j) {
       const float fold = (i > j) ? 2.0f : 1.0f;
-      const float w = 0.5f * (ar[r] * ac[c] - Ap[static_cast<size_t>(i) * n + j])
-                      * fold * (mr[r] * mc[c]);
-      walk_bwd<N>(nd, xr[r], xc[c], w, acc);
+      v = 0.5f * (alpha[o + i] * alpha[o + j]
+                  - Ap[static_cast<size_t>(i) * n + j])
+          * fold * (mask[o + i] * mask[o + j]);
     }
-  }
-  // 16 elements a thread and the lanes' warp tree in float, then double
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const int t = nd[k].type;
-    const bool has = !(t == EMPTY || t == PLUS || t == TIMES);
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      const float v = has ? warp_sum(acc[k][q]) : 0.0f;
-      if (lane == 0) s_acc[warp][3 * k + q] = v;
-    }
+    w[r][c] = v;
   }
   __syncthreads();
   double* out = partial + (static_cast<size_t>(p) * gridDim.x + blockIdx.x) * 3 * N;
-  for (int q = tid; q < 3 * N; q += THREADS) {
-    double v = 0.0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) v += s_acc[w][q];
-    out[q] = v;
-  }
+  bwd_classes<N, LO, HI>(cls, nd, tl, xr, xc, StagedCotangent{w}, s_acc, out);
+  for (int q = 3 * cls + tid; q < 3 * N; q += THREADS) out[q] = 0.0;
 }
 
 // dparams[p][q] = the tiles' double partials of particle p added in tile
@@ -325,10 +308,31 @@ int launch_val(int P, int n, const int* types, const float* params,
   const cudaError_t attr =
       cholblk::set_smem_limit(megalml_val_kernel<N>, sizeof(LmlSmem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  megalml_val_kernel<N><<<P, THREADS, sizeof(LmlSmem), s>>>(
+  megalml_val_kernel<N><<<P, ENGINE_THREADS, sizeof(LmlSmem), s>>>(
       n, types, params, diagv, mask, x, ym, core, ws, dws);
   return static_cast<int>(cudaGetLastError());
 }
+
+// K1's pass-1 launch of the backward walk for classes LO ... HI.
+template <int N>
+struct LmlBwdPass {
+  int P, n;
+  const int* types;
+  const float* params;
+  const float* mask;
+  const float* x;
+  const float* alpha;
+  const float* Ainv;
+  double* partial;
+  cudaStream_t s;
+
+  template <int LO, int HI>
+  int launch() const {
+    return launch_pass<HI>(megalml_bwd_kernel<N, LO, HI>,
+                           dim3(n_tiles(n, n, true), P), s, n, types, params,
+                           mask, x, alpha, Ainv, partial);
+  }
+};
 
 template <int N>
 int launch_vag(int P, int n, const int* types, const float* params,
@@ -339,15 +343,15 @@ int launch_vag(int P, int n, const int* types, const float* params,
   const cudaError_t attr =
       cholblk::set_smem_limit(megalml_vag_kernel<N>, sizeof(LmlSmem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  megalml_vag_kernel<N><<<P, THREADS, sizeof(LmlSmem), s>>>(
+  megalml_vag_kernel<N><<<P, ENGINE_THREADS, sizeof(LmlSmem), s>>>(
       n, types, params, diagv, mask, x, ym, core, gdiag, alpha, ws1, ws2, dws);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int T = n_tiles(n);
-  megalml_bwd_kernel<N><<<dim3(T, P), THREADS, 0, s>>>(
-      n, types, params, mask, x, alpha, ws1, partial);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const int T = n_tiles(n, n, true);
+  const int b = launch_plan<N>(
+      static_cast<long>(P) * T,
+      LmlBwdPass<N>{P, n, types, params, mask, x, alpha, ws1, partial, s});
+  if (b != 0) return b;
   reduce_tiles_kernel<<<(P * 3 * N + 255) / 256, 256, 0, s>>>(P, T, 3 * N,
                                                              partial, dparams);
   return static_cast<int>(cudaGetLastError());
@@ -361,7 +365,7 @@ int launch_vag(int P, int n, const int* types, const float* params,
 // ws2 f32 [P, n, n]; dws f32 [P, n, 32]; partial f64
 // [P, megalml_tiles(n), 3 N].  Return the cudaError_t of the launches
 // (0 = success).
-extern "C" int megalml_tiles(int n) { return n_tiles(n); }
+extern "C" int megalml_tiles(int n) { return n_tiles(n, n, true); }
 
 extern "C" int megalml_val(int N, int P, int n, const int* types,
                            const float* params, const float* diagv,

@@ -144,9 +144,9 @@ class LaunchCounter:
         self._lock = threading.Lock()
         self._counts = dict.fromkeys(names, 0)
 
-    def bump(self, name: str) -> None:
+    def bump(self, name: str, by: int = 1) -> None:
         with self._lock:
-            self._counts[name] += 1
+            self._counts[name] += by
 
     def __getitem__(self, name: str) -> int:
         with self._lock:

@@ -11,8 +11,8 @@ diag(diagv)``.  It is the fit's LML core up to capacity 512:
   when ``params``, ``diagv`` or ``ym`` need a gradient and K2 (value only)
   otherwise; its backward rescales K1's saved gradients, so a gradient
   evaluation costs one K1 call (the factorisation kernel, then the
-  backward walk over lower tiles and its fixed-order tile sum, counted
-  once);
+  backward walk over lower tiles in one launch per heap class or two
+  class-switched ones, and its fixed-order tile sum, counted once);
 * any other device raises.
 
 On the card there is no fallback: a kernel that does not build, or a shape
@@ -36,21 +36,41 @@ from .kernels import eval_cov_batch
 __all__ = [
     "lml_core", "lml_core_plain", "LmlCoreFn", "megalml_val", "megalml_vag",
     "megalml_supported", "cholesky_nan",
-    "K1_LAUNCHES", "K2_LAUNCHES", "reset_launch_counts",
+    "K1_LAUNCHES", "K2_LAUNCHES", "K1_BWD_LAUNCHES", "reset_launch_counts",
+    "vjp_launches", "CLASS_LAUNCH_BLOCKS",
 ]
 
 # Launches of K1 (value + gradient) and K2 (value only), counted where each
 # wrapper launches its kernel and nowhere else; read as K1_LAUNCHES and
-# K2_LAUNCHES.
-_LAUNCHES = LaunchCounter("K1_LAUNCHES", "K2_LAUNCHES")
+# K2_LAUNCHES.  K1_BWD_LAUNCHES counts the backward walk's pass-1 launches
+# of those K1 calls (vjp_launches): over K1_LAUNCHES, 1 or 2 for the
+# class-switched plan, the number of heap classes for one launch per class.
+_LAUNCHES = LaunchCounter("K1_LAUNCHES", "K2_LAUNCHES", "K1_BWD_LAUNCHES")
 
 _HEAP_SIZES = (7, 15, 31, 63)
 _MAX_N = 512
 
+# The VJP launch plan of csrc/covtile.cuh (K1's backward walk, K5, K7B):
+# one launch per heap class on a grid of at least CLASS_LAUNCH_BLOCKS
+# blocks (particles x tiles), else one class-switched launch for classes up
+# to REG_CLASS_MAX and one for the larger ones.
+CLASS_LAUNCH_BLOCKS = 4096
+REG_CLASS_MAX = 15
+
 
 def reset_launch_counts() -> None:
-    """Set both launch counters to zero."""
+    """Set the launch counters to zero."""
     _LAUNCHES.reset()
+
+
+def vjp_launches(n_nodes: int, blocks: int) -> int:
+    """Pass-1 launches of a VJP on heaps of ``n_nodes`` slots (a kernel
+    size: 7, 15, 31 or 63) over a grid of ``blocks`` blocks (particles x
+    tiles), by the kernels' plan; the wrappers count launches with it
+    without reading the trees' classes back."""
+    if blocks >= CLASS_LAUNCH_BLOCKS:
+        return n_nodes.bit_length()    # one per class 1, 3, ..., n_nodes
+    return 1 if n_nodes <= REG_CLASS_MAX else 2
 
 
 def megalml_supported(n_nodes: int, n: int) -> bool:
@@ -139,8 +159,8 @@ def megalml_vag(types, params, diagv, mask, x, ym):
     ws1 = torch.empty((P, n, n), dtype=torch.float32, device=dev)
     ws2 = torch.empty((P, n, n), dtype=torch.float32, device=dev)
     dws = torch.empty((P, n, 32), dtype=torch.float32, device=dev)
-    partial = torch.empty((P, lib.megalml_tiles(n), 3 * N),
-                          dtype=torch.float64, device=dev)
+    tiles = lib.megalml_tiles(n)
+    partial = torch.empty((P, tiles, 3 * N), dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.megalml_vag(N, P, n, types.data_ptr(), params.data_ptr(),
                          diagv.data_ptr(), mask.data_ptr(), x.data_ptr(),
@@ -150,6 +170,7 @@ def megalml_vag(types, params, diagv, mask, x, ym):
                          stream)
     raise_on(rc, "K1 megalml_vag")
     _LAUNCHES.bump("K1_LAUNCHES")
+    _LAUNCHES.bump("K1_BWD_LAUNCHES", vjp_launches(N, P * tiles))
     return core, dparams, gdiag, alpha
 
 

@@ -26,7 +26,7 @@ from nowcastautogp_tpu.models.config import GPConfig as JGPConfig
 from nowcastautogp_tpu.models.structures import sample_particle
 from nowcastautogp_tpu.ops import kernels as jkernels
 from nowcastautogp_tpu_torch.models import structures as st
-from nowcastautogp_tpu_torch.ops import cov, kernels, lml, megacov
+from nowcastautogp_tpu_torch.ops import cov, kernels, lml, megacov, megalml
 
 torch.set_num_threads(1)
 
@@ -205,6 +205,34 @@ def test_folded_cotangent_gives_the_full_vjp(cases):
     # the fold matters: the lower triangle of dK alone is not the VJP
     unfolded = cov.cov_bwd(t, p, x, x, torch.tril(dK)).numpy()
     assert not np.allclose(unfolded, c["g"], rtol=COT_TOL, atol=COT_TOL)
+
+
+def _symmetric_tiles(n):
+    """Lower 32 x 32 tiles of K(x, x) at n points (``megalml_tiles``)."""
+    t = -(-n // 32)
+    return t * (t + 1) // 2
+
+
+@pytest.mark.parametrize("N,P,n,launches", [
+    (31, 200, 32, 2),       # the weekly fit's first capacity: 200 blocks
+    (31, 200, 160, 2),      # its last, and the daily fit's to 160: 3,000
+    (31, 200, 224, 5),      # the daily fit from 224: 5,600
+    (31, 200, 512, 5),      # K1's largest capacity: 27,200
+    (31, 20000, 160, 5),    # the nowcast refresh's rows: 300,000
+    (31, 4095, 32, 2), (31, 4096, 32, 5),     # the boundary, one tile
+    (31, 195, 192, 2), (31, 196, 192, 5),     # 4,095 and 4,116 blocks
+    (7, 4095, 32, 1), (7, 4096, 32, 3),
+    (15, 200, 160, 1), (15, 200, 512, 4),
+    (63, 200, 160, 2), (63, 200, 512, 6),
+])
+def test_vjp_launch_plan_mirror(N, P, n, launches):
+    """covtile.cuh's VJP plan as the wrappers count it: two class-switched
+    launches (one where every class sums in registers) below
+    CLASS_LAUNCH_BLOCKS blocks, one per heap class up to N from there."""
+    blocks = P * _symmetric_tiles(n)
+    assert megalml.vjp_launches(N, blocks) == launches
+    assert (blocks >= megalml.CLASS_LAUNCH_BLOCKS) == (
+        launches == len([c for c in (1, 3, 7, 15, 31, 63) if c <= N]))
 
 
 def test_symmetric_path_rule():

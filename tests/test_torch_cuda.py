@@ -5,7 +5,10 @@ with a card run ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``tests/conftest.py`` imports jax, which the port does not need).  Inputs
 are depth-5 heaps that together hold all 8 node types, with well-conditioned
 covariances, so the float32 tolerances of the JAX package's fused-kernel
-tests apply directly.
+tests apply directly; trees of every heap class; and, for K1's backward
+walk, chip_smoke.py's prior-sampled particles, held against the float64
+plain version per particle (within tolerance, or no more than 10x float32
+plain's own error).
 """
 
 import numpy as np
@@ -217,6 +220,197 @@ def test_vjp_launch_plans_agree_bitwise(dev, N):
         whole = fn(slice(None))
         parts = torch.cat([fn(slice(i, i + 6)) for i in range(0, P, 6)])
         assert torch.equal(whole, parts)
+
+
+def _lml_args(dev, types, params, n, n_active, rng):
+    """K1/K2 operands for heaps ``types``/``params`` (numpy) at capacity n:
+    shared x = linspace(0, 1, n), noise and targets drawn from ``rng``, and
+    the mask, as chip_smoke.py's populations have them."""
+    P = types.shape[0]
+    log_noise = rng.normal(-2.0, 0.3, size=P).astype(np.float32)
+    x = np.broadcast_to(np.linspace(0, 1, n, dtype=np.float32), (P, n))
+    y = rng.normal(0.0, 1.0, size=(P, n)).astype(np.float32)
+    mask = np.broadcast_to((np.arange(n) < n_active).astype(np.float32),
+                           (P, n))
+    diagv = mask * (np.exp(log_noise)[:, None] + 1e-5) + (1.0 - mask)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    return (t(types, torch.int32), t(params), t(diagv), t(mask), t(x),
+            t(y * mask))
+
+
+def _prior(dev, P, n, seed, n_active):
+    """chip_smoke.py's ``_population``: prior-sampled depth-5 particles."""
+    from nowcastautogp_tpu_torch.models.config import GPConfig
+
+    rng = np.random.default_rng(seed)
+    ts, ps = zip(*[st.sample_particle(rng, GPConfig(max_depth=5))[:2]
+                   for _ in range(P)])
+    # the same generator goes on to draw noise and targets
+    return _lml_args(dev, np.stack(ts), np.stack(ps), n, n_active, rng)
+
+
+def _plain_chunked(args, chunk):
+    """``_plain`` a chunk of particles at a time (its level planes), with
+    the rows whose float64 factorisation failed marked."""
+    parts = [_plain(tuple(a[i:i + chunk] for a in args))
+             for i in range(0, args[0].shape[0], chunk)]
+    return tuple(torch.cat(t) for t in zip(*parts))
+
+
+def _k1_against_float64(args, chunk=None):
+    """K1's value and gradients against the float64 plain version under
+    the per-particle rule; its value bitwise K2's, and two calls bitwise
+    equal.  Returns K1's outputs."""
+    got = megalml.megalml_vag(*args)
+    again = megalml.megalml_vag(*args)
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(got[0].view(torch.int32),
+                       megalml.megalml_val(*args).view(torch.int32))
+    chunk = chunk or args[0].shape[0]
+    ref32 = _plain_chunked(args, chunk)
+    ref64 = _plain_chunked(tuple(a.double() if a.is_floating_point() else a
+                                 for a in args), chunk)
+    ok = torch.isfinite(ref64[0]) & torch.isfinite(ref32[0])
+    assert bool(ok.sum() >= 0.9 * ok.numel())
+    assert _within_per_particle_rule(got[0][ok], ref32[0][ok], ref64[0][ok],
+                                     VAL_RTOL, VAL_ATOL)
+    for g, r32, r64 in zip(got[1:], ref32[1:], ref64[1:]):
+        assert _within_per_particle_rule(g[ok], r32[ok], r64[ok], GRAD_RTOL,
+                                         GRAD_ATOL)
+    return got
+
+
+@pytest.mark.parametrize("N", [31, 63])
+@pytest.mark.parametrize("n,reps", [(96, 2), (512, 7)])
+def test_k1_every_heap_class(dev, N, n, reps):
+    """K1's backward walk on trees of every heap class up to N, mixed in
+    one batch, under both launch plans: at n = 96 two of each class (6
+    tiles x 10-12 particles: two class-switched launches), at n = 512 seven
+    of each (136 tiles x 35-42 particles, past CLASS_LAUNCH_BLOCKS: one
+    launch per class).  Value and gradients against the float64 plain
+    version per particle, zero gradients past each tree's class."""
+    classes = [c for c in (1, 3, 7, 15, 31, 63) if c <= N]
+    types = np.stack([_chain_heap(c - 1, N) for c in classes * reps])
+    params = np.random.default_rng(N + n).normal(
+        0.0, 0.5, types.shape + (3,)).astype(np.float32)
+    params[types == 0] = 0.0
+    args = _lml_args(dev, types, params, n, n - 13,
+                     np.random.default_rng(n))
+    assert cov.heap_class(args[0]).tolist() == classes * reps
+    megalml.reset_launch_counts()
+    dparams = _k1_against_float64(args, chunk=max(1, 2 ** 23 // (n * n)))[1]
+    plan = 2 if n == 96 else len(classes)
+    assert megalml.K1_BWD_LAUNCHES == 2 * plan  # two K1 calls
+    for i, c in enumerate(classes * reps):
+        assert not dparams[i, c:].any()
+
+
+@pytest.mark.parametrize("n,seed", [(288, 288), (352, 352), (512, 512)])
+def test_k1_ill_conditioned_prior_particles(dev, n, seed):
+    """The 200 prior particles of chip_smoke.py's parity phase at the daily
+    fit's capacities from 288, where a float running sum over a row of
+    tiles once missed the per-particle bound on 2-4 ill-conditioned
+    particles a capacity: K1 within it."""
+    args = _prior(dev, 200, n, seed, n - 14)
+    _k1_against_float64(args, chunk=max(1, 2 ** 23 // (n * n)))
+
+
+def _bwd_launches(fn):
+    """fn() run under the profiler: (its result, the launches of K1's
+    backward walk the card ran)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    return out, sum("megalml_bwd_kernel" in name for name in names)
+
+
+@pytest.mark.parametrize("P,n,launches", [
+    (200, 32, 2), (200, 160, 2), (200, 224, 5), (200, 512, 5),
+    (20000, 160, 5)])
+def test_k1_launch_plan_and_its_count(dev, P, n, launches):
+    """K1's backward walk launches by covtile.cuh's plan at the fits' and
+    the refresh's shapes (two class-switched launches below 4,096 blocks,
+    one per heap class from there), as many as the card ran, and as
+    K1_BWD_LAUNCHES and its mirror, megalml.vjp_launches, count them."""
+    types = np.stack([_chain_heap(c - 1, 31)
+                      for c in np.resize([1, 3, 7, 15, 31], P)])
+    params = np.random.default_rng(P + n).normal(
+        0.0, 0.5, types.shape + (3,)).astype(np.float32)
+    args = _lml_args(dev, types, params, n, n, np.random.default_rng(n))
+    tiles = megalml.library().megalml_tiles(n)
+    assert tiles == -(-n // 32) * (-(-n // 32) + 1) // 2
+    assert megalml.vjp_launches(31, P * tiles) == launches
+    megalml.reset_launch_counts()
+    _, ran = _bwd_launches(lambda: megalml.megalml_vag(*args))
+    assert ran == launches
+    assert (megalml.K1_LAUNCHES, megalml.K1_BWD_LAUNCHES) == (1, launches)
+
+
+@pytest.mark.parametrize("N", [31, 63])
+def test_k1_launch_plans_agree_bitwise(dev, N):
+    """K1's backward walk in one launch per heap class (150 particles of
+    every class at n = 512: 20,400 blocks) and in two class-switched
+    launches (the same particles 6 at a time: 816 blocks), bitwise."""
+    classes = [c for c in (1, 3, 7, 15, 31, 63) if c <= N]
+    P = 150
+    types = np.stack([_chain_heap(classes[i % len(classes)] - 1, N)
+                      for i in range(P)])
+    params = np.random.default_rng(N).normal(
+        0.0, 0.5, types.shape + (3,)).astype(np.float32)
+    args = _lml_args(dev, types, params, 512, 500, np.random.default_rng(N))
+    megalml.reset_launch_counts()
+    whole = megalml.megalml_vag(*args)
+    assert megalml.K1_BWD_LAUNCHES == len(classes)
+    parts = [megalml.megalml_vag(*(a[i:i + 6] for a in args))
+             for i in range(0, P, 6)]
+    assert megalml.K1_BWD_LAUNCHES == len(classes) + 2 * len(parts)
+    for w, p in zip(whole, zip(*parts)):
+        assert torch.equal(w.view(torch.int32),
+                           torch.cat(p).view(torch.int32))
+
+
+@pytest.mark.parametrize("N,P,n", [(31, 200, 160), (63, 30, 512),
+                                   (63, 31, 512), (31, 20000, 160)])
+def test_k1_writes_stay_in_its_buffers(dev, N, P, n):
+    """K1's C entry under both launch plans (200 x 15 and 30 x 136 blocks:
+    two class-switched launches; 31 x 136 and 20,000 x 15: one per class)
+    writes nothing past the buffers the wrapper sizes (``partial`` of
+    megalml_tiles(n) tiles): each output and work buffer is the head of a
+    longer one whose NaN tail is unchanged after the call, and the heads
+    hold the wrapper's answer bitwise."""
+    classes = [c for c in (1, 3, 7, 15, 31, 63) if c <= N]
+    types = np.stack([_chain_heap(c - 1, N) for c in np.resize(classes, P)])
+    params = np.random.default_rng(P + n).normal(
+        0.0, 0.5, types.shape + (3,)).astype(np.float32)
+    args = _lml_args(dev, types, params, n, n - 7, np.random.default_rng(n))
+    lib = megalml.library()
+    f32, f64 = torch.float32, torch.float64
+    shapes = [(f32, (P,)), (f32, (P, N, 3)), (f32, (P, n)), (f32, (P, n)),
+              (f32, (P, n, n)), (f32, (P, n, n)), (f32, (P, n, 32)),
+              (f64, (P, lib.megalml_tiles(n), 3 * N))]
+    tail = 4096
+    bufs = [torch.full((int(np.prod(s)) + tail,), float("nan"), dtype=dt,
+                       device=dev) for dt, s in shapes]
+    rc = lib.megalml_vag(N, P, n, *(a.data_ptr() for a in args),
+                         *(b.data_ptr() for b in bufs),
+                         torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    for b in bufs:
+        assert bool(torch.isnan(b[-tail:]).all())
+    for b, (_, s), want in zip(bufs, shapes, megalml.megalml_vag(*args)):
+        head = b[:int(np.prod(s))].view(s)
+        assert torch.equal(head.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("n", [96, 576])
