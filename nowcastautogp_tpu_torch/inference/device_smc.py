@@ -25,11 +25,13 @@ from ..models.structures_device import (
     ConfigArrays, device_prior_arrays, device_propose_mixed,
 )
 from ..ops.lml import DEFAULT_JITTER, gp_lml_batched
+from ..utils.profiling import in_span, span
 from .hmc import _value_and_grad, make_batched_potential, run_hmc
 
 __all__ = ["rejuvenation_sweep", "smc_fit_device"]
 
 
+@in_span("mcmc/device_sweep")
 def rejuvenation_sweep(
     types, params, log_noise, lml, x, y, mask, gen, cfg: ConfigArrays, anc,
     *, n_mcmc, n_hmc, n_leapfrog, step_size, step_jitter,
@@ -50,6 +52,10 @@ def rejuvenation_sweep(
 
     Returns (types, params, log_noise, lml, mean accept rate (0-d tensor),
     eps_scale).
+
+    Spans: ``mcmc/device_sweep`` around the call, ``mcmc/device_propose``
+    around each proposal and its evaluation, ``mcmc/device_accept``
+    around each MH accept's selects; none reads a value back.
     """
     P = params.shape[0]
     dev = params.device
@@ -75,22 +81,27 @@ def rejuvenation_sweep(
         U, lml, g_p, g_n = pot_and_grad_at(types, params, log_noise)
     n_acc = torch.zeros(P, device=dev)
     for _ in range(n_mcmc):
-        t2, p2, log_h = device_propose_mixed(types, params, gen, cfg, anc)
+        with span("mcmc/device_propose"):
+            t2, p2, log_h = device_propose_mixed(types, params, gen, cfg,
+                                                 anc)
+            if n_hmc > 0:
+                U2, lml2, g2_p, g2_n = pot_and_grad_at(t2, p2, log_noise)
+            else:
+                with torch.no_grad():
+                    lml2 = gp_lml_batched(t2, p2, log_noise, x, y, mask,
+                                          jitter)
+        with span("mcmc/device_accept"):
+            u = torch.rand(P, generator=gen, device=dev)
+            accept = torch.log(u) < (lml2 - lml + log_h)
+            a1, a3 = accept[:, None], accept[:, None, None]
+            types = torch.where(a1, t2, types)
+            params = torch.where(a3, p2, params)
+            lml = torch.where(accept, lml2, lml)
+            if n_hmc > 0:
+                U = torch.where(accept, U2, U)
+                g_p = torch.where(a3, g2_p, g_p)
+                g_n = torch.where(accept, g2_n, g_n)
         if n_hmc > 0:
-            U2, lml2, g2_p, g2_n = pot_and_grad_at(t2, p2, log_noise)
-        else:
-            with torch.no_grad():
-                lml2 = gp_lml_batched(t2, p2, log_noise, x, y, mask, jitter)
-        u = torch.rand(P, generator=gen, device=dev)
-        accept = torch.log(u) < (lml2 - lml + log_h)
-        a1, a3 = accept[:, None], accept[:, None, None]
-        types = torch.where(a1, t2, types)
-        params = torch.where(a3, p2, params)
-        lml = torch.where(accept, lml2, lml)
-        if n_hmc > 0:
-            U = torch.where(accept, U2, U)
-            g_p = torch.where(a3, g2_p, g_p)
-            g_n = torch.where(accept, g2_n, g_n)
             mu, sg, act = device_prior_arrays(types, cfg)
             params, log_noise, lml, _, eps_scale, (U, g_p, g_n) = (
                 run_hmc(types, params, log_noise, mu, sg, act, x, y, mask,

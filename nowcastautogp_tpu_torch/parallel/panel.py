@@ -16,6 +16,12 @@ hot call -- reweight LML, device sweep, host move, HMC -- runs one body a
 shard, the shards in turn; the padded rows are trimmed from the
 result.  The state lives on the mesh's first device between calls.  A
 mesh of one shard runs the unsharded calls on its device.
+
+Spans (``utils/profiling.py``): ``api/fit_panel`` around the fit,
+``panel/step`` around each schedule step, inside it ``panel/reweight``
+(the LML call and its reads back) and ``panel/resample``, and
+``panel/split`` around the final read back; the count
+``panel/resampled_series`` takes the series resampled at each step.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from ..ops.lml import (
 )
 from ..utils.apply import apply_elementwise
 from ..utils.dates import dates_to_float
+from ..utils.profiling import count, in_span, readback, span
 from .sharding import (
     _on_shards, lml_rows_sharded, rejuvenation_sweep_sharded,
     run_hmc_sharded,
@@ -88,6 +95,7 @@ def _pad_series(items, P: int, mesh):
     return items, S_real
 
 
+@in_span("api/fit_panel")
 def fit_panel(
     datasets, *, n_particles: int = 1, smc_data_proportion: float = 0.1,
     n_mcmc, n_hmc, config: GPConfig | None = None,
@@ -205,92 +213,100 @@ def fit_panel(
         y_seg = y_b[:, :cap_k].contiguous()
         iota = np.arange(cap_k)
         for n_k in steps:
-            f = n_k / n_max
-            n_new = np.minimum(
-                np.ceil(f * lens_row).astype(np.int64), lens_row)
-            mask_b = on_dev((iota[None, :] < n_new[:, None]).astype(
-                np.float32))
-            with torch.no_grad():
-                if sweep_mesh is not None:
-                    lml_new = lml_rows_sharded(types_d, params, log_noise,
-                                               x_seg, y_seg, mask_b,
-                                               mesh=sweep_mesh)
-                else:
-                    lml_new = gp_lml_batched(types_d, params, log_noise,
-                                             x_seg, y_seg, mask_b,
-                                             DEFAULT_JITTER)
-            lml_new_np = lml_new.cpu().numpy().astype(np.float64)
-            lml_old_np = lml.cpu().numpy().astype(np.float64)
-            # sentinel guard: a particle broken on either side of the
-            # reweight must lose weight, not gain ~1e10 of it
-            log_w += np.where(
-                (lml_old_np <= -1e9) | (lml_new_np <= -1e9), -1e10,
-                lml_new_np - lml_old_np)
-            lml = lml_new
+            with span("panel/step"):
+                f = n_k / n_max
+                n_new = np.minimum(
+                    np.ceil(f * lens_row).astype(np.int64), lens_row)
+                mask_b = on_dev((iota[None, :] < n_new[:, None]).astype(
+                    np.float32))
+                with span("panel/reweight"):
+                    with torch.no_grad():
+                        if sweep_mesh is not None:
+                            lml_new = lml_rows_sharded(
+                                types_d, params, log_noise, x_seg, y_seg,
+                                mask_b, mesh=sweep_mesh)
+                        else:
+                            lml_new = gp_lml_batched(
+                                types_d, params, log_noise, x_seg, y_seg,
+                                mask_b, DEFAULT_JITTER)
+                    lml_new_np = readback(lml_new).astype(np.float64)
+                    lml_old_np = readback(lml).astype(np.float64)
+                    # sentinel guard: a particle broken on either side of the
+                    # reweight must lose weight, not gain ~1e10 of it
+                    log_w += np.where(
+                        (lml_old_np <= -1e9) | (lml_new_np <= -1e9), -1e10,
+                        lml_new_np - lml_old_np)
+                lml = lml_new
 
-            # per-series ESS resampling: host index math, one gather
-            low = []
-            flat_idx = np.arange(R, dtype=np.int64)
-            for s in range(S):
-                sl = slice(s * P, (s + 1) * P)
-                if P > 1 and ess(log_w[sl]) < ess_fraction * P:
-                    flat_idx[sl] = resample_indices(rng, log_w[sl]) + s * P
-                    log_w[sl] = 0.0
-                    low.append(s)
-            if low:
-                idx = on_dev(flat_idx, torch.int64)
-                params, log_noise, lml, eps_scale = (
-                    a[idx] for a in (params, log_noise, lml, eps_scale))
-                host_types = host_types[flat_idx]
-                types_d = on_dev(host_types, torch.int32)
-            do_rejuvenate = bool(low) or not adaptive_rejuvenation
-            if do_rejuvenate and use_device:
-                if sweep_mesh is not None:
-                    types_d, params, log_noise, lml, _, eps_scale = (
-                        rejuvenation_sweep_sharded(
-                            types_d, params, log_noise, lml, x_seg, y_seg,
-                            mask_b, gen, eps_scale, cfg_arrays, anc,
-                            mesh=sweep_mesh, n_mcmc=n_mcmc, n_hmc=n_hmc,
-                            **hmc_kw))
-                else:
-                    types_d, params, log_noise, lml, _, eps_scale = (
-                        rejuvenation_sweep(
-                            types_d, params, log_noise, lml, x_seg, y_seg,
-                            mask_b, gen, cfg_arrays, anc, n_mcmc=n_mcmc,
-                            n_hmc=n_hmc, eps_scale=eps_scale, **hmc_kw))
-                host_types = types_d.cpu().numpy().astype(np.int32)
-            elif do_rejuvenate and n_mcmc > 0:
-                (host_types, params, log_noise, lml, _,
-                 eps_scale) = mcmc_structure_sweep(
-                    rng, gen, host_types, params, log_noise, lml, x_seg,
-                    y_seg, mask_b, config, n_mcmc, n_hmc, hmc_cfg,
-                    DEFAULT_JITTER, noise_mu, noise_sigma, infer, eps_scale,
-                    mesh=sweep_mesh)
-                types_d = on_dev(host_types, torch.int32)
-            elif do_rejuvenate and n_hmc > 0:
-                mu, sg, act = (on_dev(a) for a in
-                               prior_arrays(host_types, config))
-                if sweep_mesh is not None:
-                    params, log_noise, lml, _, eps_scale = run_hmc_sharded(
-                        types_d, params, log_noise, mu, sg, act, x_seg,
-                        y_seg, mask_b, gen, eps_scale, mesh=sweep_mesh,
-                        n_steps=n_hmc, **hmc_kw)
-                else:
-                    params, log_noise, lml, _, eps_scale, _ = run_hmc(
-                        types_d, params, log_noise, mu, sg, act, x_seg,
-                        y_seg, mask_b, gen, n_steps=n_hmc,
-                        eps_scale=eps_scale, **hmc_kw)
+                # per-series ESS resampling: host index math, one gather
+                with span("panel/resample"):
+                    low = []
+                    flat_idx = np.arange(R, dtype=np.int64)
+                    for s in range(S):
+                        sl = slice(s * P, (s + 1) * P)
+                        if P > 1 and ess(log_w[sl]) < ess_fraction * P:
+                            flat_idx[sl] = (resample_indices(rng, log_w[sl])
+                                            + s * P)
+                            log_w[sl] = 0.0
+                            low.append(s)
+                    if low:
+                        idx = on_dev(flat_idx, torch.int64)
+                        params, log_noise, lml, eps_scale = (
+                            a[idx]
+                            for a in (params, log_noise, lml, eps_scale))
+                        host_types = host_types[flat_idx]
+                        types_d = on_dev(host_types, torch.int32)
+                count("panel/resampled_series", len(low))
+                do_rejuvenate = bool(low) or not adaptive_rejuvenation
+                if do_rejuvenate and use_device:
+                    if sweep_mesh is not None:
+                        types_d, params, log_noise, lml, _, eps_scale = (
+                            rejuvenation_sweep_sharded(
+                                types_d, params, log_noise, lml, x_seg, y_seg,
+                                mask_b, gen, eps_scale, cfg_arrays, anc,
+                                mesh=sweep_mesh, n_mcmc=n_mcmc, n_hmc=n_hmc,
+                                **hmc_kw))
+                    else:
+                        types_d, params, log_noise, lml, _, eps_scale = (
+                            rejuvenation_sweep(
+                                types_d, params, log_noise, lml, x_seg, y_seg,
+                                mask_b, gen, cfg_arrays, anc, n_mcmc=n_mcmc,
+                                n_hmc=n_hmc, eps_scale=eps_scale, **hmc_kw))
+                    host_types = readback(types_d).astype(np.int32)
+                elif do_rejuvenate and n_mcmc > 0:
+                    (host_types, params, log_noise, lml, _,
+                     eps_scale) = mcmc_structure_sweep(
+                        rng, gen, host_types, params, log_noise, lml, x_seg,
+                        y_seg, mask_b, config, n_mcmc, n_hmc, hmc_cfg,
+                        DEFAULT_JITTER, noise_mu, noise_sigma, infer,
+                        eps_scale, mesh=sweep_mesh)
+                    types_d = on_dev(host_types, torch.int32)
+                elif do_rejuvenate and n_hmc > 0:
+                    mu, sg, act = (on_dev(a) for a in
+                                   prior_arrays(host_types, config))
+                    if sweep_mesh is not None:
+                        params, log_noise, lml, _, eps_scale = run_hmc_sharded(
+                            types_d, params, log_noise, mu, sg, act, x_seg,
+                            y_seg, mask_b, gen, eps_scale, mesh=sweep_mesh,
+                            n_steps=n_hmc, **hmc_kw)
+                    else:
+                        params, log_noise, lml, _, eps_scale, _ = run_hmc(
+                            types_d, params, log_noise, mu, sg, act, x_seg,
+                            y_seg, mask_b, gen, n_steps=n_hmc,
+                            eps_scale=eps_scale, **hmc_kw)
             step_i += 1
             if verbose:
                 logger.info("panel SMC step %d/%d: n=%d cap=%d resampled "
                             "%d/%d series", step_i, len(schedule), n_k,
                             cap_k, len(low), S)
 
-    # ---- split rows back into per-series GPModels
-    params_np = params.cpu().numpy()
-    log_noise_np = log_noise.cpu().numpy()
-    lml_np = lml.cpu().numpy()
-    scale_np = eps_scale.cpu().numpy()
+    # ---- split rows back into per-series GPModels: the state's one read
+    # back after the loop, in a span of its own
+    with span("panel/split"):
+        params_np = params.cpu().numpy()
+        log_noise_np = log_noise.cpu().numpy()
+        lml_np = lml.cpu().numpy()
+        scale_np = eps_scale.cpu().numpy()
     models = []
     for s, d in enumerate(datasets[:S_real]):
         sl = slice(s * P, (s + 1) * P)
@@ -349,9 +365,9 @@ def _panel_predict_rows(models, forecast_dates, *, include_noise, mesh=None):
     types_l, params_l, noise_l, w_rows = [], [], [], []
     for s, model in enumerate(models):
         c = int(model._cap)
-        x_rows[s, :c] = model._x_d.cpu().numpy()
-        y_rows[s, :c] = model._y_d.cpu().numpy()
-        m_rows[s, :c] = model._mask().cpu().numpy()
+        x_rows[s, :c] = readback(model._x_d)
+        y_rows[s, :c] = readback(model._y_d)
+        m_rows[s, :c] = readback(model._mask())
         xs_rows[s] = model._normalize_dates(dates).astype(np.float32)
         types_l.append(model._host_types)
         params_l.append(model._params_d.to(dev))
@@ -369,16 +385,16 @@ def _panel_predict_rows(models, forecast_dates, *, include_noise, mesh=None):
     def build(*a):
         with torch.no_grad():
             mu, cov = gp_predict_batch_rows(*a, DEFAULT_JITTER, include_noise)
-            return mu.cpu(), sampling_cholesky(cov).cpu()
+            return readback(mu), readback(sampling_cholesky(cov))
 
     if shard_mesh is None:
         mu, F = build(*rows)
     else:
-        mu, F = (torch.cat(t) for t in zip(*_on_shards(shard_mesh, build,
-                                                        rows)))
+        mu, F = (np.concatenate(t)
+                 for t in zip(*_on_shards(shard_mesh, build, rows)))
 
-    mu = mu.numpy().astype(np.float64).reshape(S, P, nq)[:S_real]
-    F = F.numpy().astype(np.float64).reshape(S, P, nq, nq)[:S_real]
+    mu = mu.astype(np.float64).reshape(S, P, nq)[:S_real]
+    F = F.astype(np.float64).reshape(S, P, nq, nq)[:S_real]
     y_mean = np.asarray([m._y_mean for m in models[:S_real]])[:, None, None]
     y_std = np.asarray([m._y_std for m in models[:S_real]])[:, None, None]
     mu = y_mean + y_std * mu

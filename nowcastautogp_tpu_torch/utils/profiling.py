@@ -1,12 +1,16 @@
 """Tracing & per-phase timing: the port's one span facility.
 
 * :func:`span` -- a context manager around one layer boundary of the fit,
-  forecast and nowcast paths (``api/*``, ``smc/*``, ``mcmc/*``, ``hmc/*``,
-  ``lml/*``, ``nowcast/*``, ``host/*``; the table is in ``PERF.md`` §3).
+  forecast, nowcast and panel paths (``api/*``, ``smc/*``, ``mcmc/*``,
+  ``hmc/*``, ``lml/*``, ``nowcast/*``, ``panel/*``, ``host/*``; the table
+  is in ``PERF.md`` §3).
   With no sink installed it returns one shared null context: it reads no
   clock, allocates nothing and records nothing, so the program pays one
   function call a site.  With a sink installed it returns
   ``sink.span(name)``.
+* :func:`in_span` decorates a function to run inside a :func:`span`.
+* :func:`count` hands a count to the sink's ``count(name, n)`` where the
+  sink has one, and does nothing otherwise (``panel/resampled_series``).
 * :func:`set_sink` installs a sink (any object whose ``span(name)``
   returns a context manager) and returns the previous one; ``None``
   clears it.  While a sink is installed a ``gc.callbacks`` hook records
@@ -32,12 +36,14 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import gc
 import os
 import time
 
-__all__ = ["span", "set_sink", "recording", "Recorder", "readback", "phase",
-           "phase_report", "reset_phases", "device_trace"]
+__all__ = ["span", "in_span", "count", "set_sink", "recording", "Recorder",
+           "readback", "phase", "phase_report", "reset_phases",
+           "device_trace"]
 
 _NULL = contextlib.nullcontext()
 _sink = None
@@ -54,6 +60,26 @@ def span(name: str):
     if sink is None:
         return _NULL
     return sink.span(name)
+
+
+def in_span(name: str):
+    """A decorator: every call of the function runs inside the span
+    ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the count ``name`` in the installed sink, where the
+    sink keeps counts; nothing otherwise."""
+    add = getattr(_sink, "count", None)
+    if add is not None:
+        add(name, n)
 
 
 def _on_gc(phase_: str, info) -> None:
@@ -80,11 +106,16 @@ def set_sink(sink):
 class Recorder:
     """A sink that keeps every span in memory, as ``records`` of
     ``(name, start_ns, end_ns, depth)`` in the order the spans end; depth
-    0 is a span opened with no other open."""
+    0 is a span opened with no other open.  ``counts`` sums each count by
+    name."""
 
     def __init__(self):
         self.records: list[tuple[str, int, int, int]] = []
+        self.counts: dict[str, int] = collections.defaultdict(int)
         self._depth = 0
+
+    def count(self, name: str, n: int) -> None:
+        self.counts[name] += int(n)
 
     @contextlib.contextmanager
     def span(self, name: str):
@@ -112,8 +143,8 @@ def recording():
 def readback(t):
     """``t.cpu().numpy()`` inside a ``host/readback`` span: the host
     blocked on the card until ``t`` is computed, plus the copy.  Every
-    device-to-host read of the fit, forecast and nowcast paths goes
-    through here."""
+    device-to-host read of the fit, forecast, nowcast and panel paths
+    goes through here."""
     with span("host/readback"):
         return t.cpu().numpy()
 
