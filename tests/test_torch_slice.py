@@ -21,10 +21,14 @@ import nowcastautogp_tpu as jngp
 import nowcastautogp_tpu_torch as ngp
 from nowcastautogp_tpu.ops import lml as jlml
 from nowcastautogp_tpu_torch import nowcast
+from nowcastautogp_tpu_torch.inference import hmc
 from nowcastautogp_tpu_torch.inference.hmc import run_hmc
 from nowcastautogp_tpu_torch.models.gp_model import GPModel
 from nowcastautogp_tpu_torch.models.structures import prior_arrays
-from nowcastautogp_tpu_torch.ops.lml import lml_core, set_lml_backend
+from nowcastautogp_tpu_torch.ops.lml import (
+    composed_chunk, lml_core, set_lml_backend,
+)
+from nowcastautogp_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -275,6 +279,120 @@ def test_hmc_prior_invariance_with_empty_mask():
         k = sample.numel()
         assert abs(float(sample.mean())) < 5.0 / np.sqrt(k)
         assert abs(float(sample.var()) - 1.0) < 5.0 * np.sqrt(2.0 / k)
+
+
+def _run_hmc_one_loop(node_types, params, log_noise, prior_mu, prior_sigma,
+                      prior_active, x, y, mask, gen, *, n_steps, n_leapfrog,
+                      step_size, step_jitter, jitter, noise_mu, noise_sigma,
+                      infer_noise, eps_scale=None, init=None):
+    """``run_hmc`` as one loop, drawing inside the trajectory: the loop
+    before its body was split out, kept verbatim as the reference."""
+    P = params.shape[0]
+    dev = params.device
+    if eps_scale is None:
+        eps_scale = torch.ones(P, dtype=params.dtype, device=dev)
+    potential = hmc.make_batched_potential(
+        node_types, prior_mu, prior_sigma, prior_active,
+        x, y, mask, jitter, noise_mu, noise_sigma, infer_noise,
+    )
+    if init is None:
+        U0, lml, g_p, g_n = hmc._value_and_grad(potential, params, log_noise)
+    else:
+        U0, lml, g_p, g_n = init
+    p, ln, scale = params.detach(), log_noise.detach(), eps_scale
+    n_acc = torch.zeros(P, dtype=torch.float32, device=dev)
+    for _ in range(n_steps):
+        eps = step_size * scale * (
+            1.0 + step_jitter * (
+                2.0 * torch.rand(P, generator=gen, device=dev) - 1.0))
+        eps3 = eps[:, None, None]
+        mom_p = torch.randn(p.shape, generator=gen,
+                            device=dev) * prior_active
+        mom_n = torch.randn(P, generator=gen, device=dev) * infer_noise
+        K0 = 0.5 * ((mom_p * mom_p).sum((1, 2)) + mom_n * mom_n)
+
+        p_, ln_, mp, mn, gp_, gn_ = p, ln, mom_p, mom_n, g_p, g_n
+        U_, lml_ = U0, lml
+        for _ in range(n_leapfrog):
+            mp = mp - 0.5 * eps3 * gp_ * prior_active
+            mn = mn - 0.5 * eps * gn_ * infer_noise
+            p_ = p_ + eps3 * mp * prior_active
+            ln_ = ln_ + eps * mn * infer_noise
+            U_, lml_, gp_, gn_ = hmc._value_and_grad(potential, p_, ln_)
+            mp = mp - 0.5 * eps3 * gp_ * prior_active
+            mn = mn - 0.5 * eps * gn_ * infer_noise
+        K1 = 0.5 * ((mp * mp).sum((1, 2)) + mn * mn)
+        dH = (U0 + K0) - (U_ + K1)
+        u = torch.rand(P, generator=gen, device=dev)
+        ok = torch.isfinite(dH) & (
+            torch.log(u) < torch.clamp_max(dH, 0.0))
+        ok3 = ok[:, None, None]
+        p = torch.where(ok3, p_, p)
+        ln = torch.where(ok, ln_, ln)
+        U0 = torch.where(ok, U_, U0)
+        lml = torch.where(ok, lml_, lml)
+        g_p = torch.where(ok3, gp_, g_p)
+        g_n = torch.where(ok, gn_, g_n)
+        okf = ok.to(scale.dtype)
+        scale = torch.clamp(
+            scale * torch.exp(hmc._ADAPT_RATE * (okf - hmc._TARGET_ACCEPT)),
+            *hmc._SCALE_BOUNDS)
+        n_acc = n_acc + okf
+    rate = n_acc / max(n_steps, 1)
+    return p, ln, lml, rate, scale, (U0, g_p, g_n)
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+@pytest.mark.parametrize("given_init", [False, True])
+def test_run_hmc_split_keeps_the_draws(n_steps, given_init):
+    """The trajectory body with its draws taken up front, as the eager
+    loop runs it, equals the one-loop version bit for bit on a CPU
+    generator: the random stream and the arithmetic are unchanged.  The
+    counts say every trajectory ran eagerly."""
+    dates, y = _series()
+    pm = GPModel(dates[:N_TRAIN], y[:N_TRAIN], n_particles=P,
+                 config=ngp.GPConfig(max_depth=3), seed=3, device="cpu")
+    x, yb, m = pm._batched_data()
+    mu, sg, act = (pm._tensor(a) for a in prior_arrays(pm._host_types,
+                                                       pm.config))
+    noise_mu, noise_sigma, infer = pm.noise_prior
+    kw = dict(n_steps=n_steps, n_leapfrog=4, step_size=0.3,
+              step_jitter=0.5, jitter=1e-5, noise_mu=noise_mu,
+              noise_sigma=noise_sigma, infer_noise=infer,
+              eps_scale=torch.linspace(0.5, 2.0, P))
+    args = (pm._types_d(), pm._params_d, pm._log_noise_d, mu, sg, act, x,
+            yb, m)
+    if given_init:
+        pot = hmc.make_batched_potential(*args[:1], mu, sg, act, x, yb, m,
+                                         1e-5, noise_mu, noise_sigma, infer)
+        kw["init"] = hmc._value_and_grad(pot, pm._params_d, pm._log_noise_d)
+    outs = []
+    with profiling.recording() as rec:
+        for fn in (_run_hmc_one_loop, run_hmc):
+            gen = torch.Generator().manual_seed(11)
+            outs.append(fn(*args, gen, **kw))
+            outs[-1] += (gen.get_state(),)
+    want, got = (list(o[:5]) + list(o[5]) + [o[6]] for o in outs)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    assert dict(rec.counts) == {"hmc/eager_trajectories": n_steps}
+
+
+def test_graph_engagement_rule():
+    """The graph engages on the card where one LML call's budget is at most
+    half a call's: the fits' fused core, the daily cell's composed core at
+    576 and the refresh's 20,000 rows at 160; never on a CPU tensor, nor
+    where the composed core runs in chunks or a call is larger."""
+    chunk = composed_chunk(2208)
+    assert not hmc._uses_graph("cpu", 200, 160)
+    assert not hmc._uses_graph("cpu", 16, 576)
+    assert hmc._uses_graph("cuda", 200, 32)
+    assert hmc._uses_graph("cuda", 1272, 160)
+    assert hmc._uses_graph("cuda", 20000, 160)
+    assert hmc._uses_graph("cuda", 200, 576)
+    assert hmc._uses_graph("cuda", 32, 2208)
+    assert not hmc._uses_graph("cuda", 3200, 576)
+    assert not hmc._uses_graph("cuda", chunk + 1, 2208)
 
 
 def test_unported_paths_raise():
