@@ -2,7 +2,7 @@
 """bench.py's workload and quality gates on the PyTorch port, on one card.
 
     python3 bench_torch.py [--engine host|device]
-    python3 bench_torch.py --panel [--serial] [--mesh]
+    python3 bench_torch.py --panel [--serial]
     python3 bench_torch.py --acceptance [--full]
 
 Default mode: the workload of ``bench.py:46-100`` at its operating point,
@@ -34,8 +34,7 @@ series' log-CRPS must stay under that tool's collapse gate of 0.2 (exit 1
 otherwise).  ``--serial`` adds the same 20 series fitted one by one
 through ``make_and_fit_model`` at identical budgets (the device engine,
 seeds 1000 + s) and forecast with ``forecast``: both fit times and both
-per-series log-CRPS medians.  ``--mesh`` shards the panel's rows over
-every visible card (``make_mesh()``).  Both print each fit's MFU.
+per-series log-CRPS medians.  Both print each fit's MFU.
 
 ``--acceptance``: ``run_acceptance`` (the five-approach CRPS comparison of
 the JAX package's ``examples/acceptance.py``) with the panel fit, on the
@@ -200,7 +199,7 @@ def fit_mfu(config, n_rows, n_train, proportion, fit_s, types=None):
     return mfu(ops, fit_s)
 
 
-def run_panel(serial=False, draws=500, device="cuda", mesh=None):
+def run_panel(serial=False, draws=500, device="cuda"):
     import nowcastautogp_tpu_torch as ngp
 
     dates, datasets, invs, truths = panel_workload()
@@ -209,12 +208,12 @@ def run_panel(serial=False, draws=500, device="cuda", mesh=None):
     _sync(device)
     t0 = time.time()
     models = ngp.fit_panel(datasets, seed=1, engine="device", device=device,
-                           mesh=mesh, **kw)
+                           **kw)
     _sync(device)
     fit_s = time.time() - t0
     t0 = time.time()
     fcs = ngp.forecast_panel(models, f_dates, draws,
-                             inv_transformations=invs, seed=2, mesh=mesh)
+                             inv_transformations=invs, seed=2)
     forecast_s = time.time() - t0
     crps, cover = score_series(fcs, truths, device)
     out = {"panel": {
@@ -222,7 +221,6 @@ def run_panel(serial=False, draws=500, device="cuda", mesh=None):
         "log_crps_per_series": crps,
         "log_crps_median": float(np.median(crps)),
         "coverage90_mean": float(np.mean(cover)),
-        "shards": mesh.size if mesh is not None else 1,
         "mfu": fit_mfu(kw["config"], len(datasets) * kw["n_particles"],
                        len(datasets[0].y), kw["smc_data_proportion"], fit_s,
                        np.concatenate([m._host_types for m in models])),
@@ -331,15 +329,11 @@ def main(argv=None):
     mode.add_argument("--acceptance", action="store_true")
     ap.add_argument("--serial", action="store_true",
                     help="--panel: also fit the series one by one")
-    ap.add_argument("--mesh", action="store_true",
-                    help="--panel: shard the rows over every visible card")
     ap.add_argument("--full", action="store_true",
                     help="--acceptance: the vignette's canonical budgets")
     args = ap.parse_args(argv)
-    if ((args.serial or args.mesh) and not args.panel
-            or args.full and not args.acceptance):
-        ap.error("--serial and --mesh go with --panel, --full with "
-                 "--acceptance")
+    if args.serial and not args.panel or args.full and not args.acceptance:
+        ap.error("--serial goes with --panel, --full with --acceptance")
 
     import torch
 
@@ -357,10 +351,7 @@ def main(argv=None):
         cudalib.build_library()
         build_s = time.time() - t0
         if args.panel:
-            import nowcastautogp_tpu_torch as ngp
-
-            mesh = ngp.make_mesh() if args.mesh else None
-            out = run_panel(args.serial, mesh=mesh)
+            out = run_panel(args.serial)
         else:
             out = run_acceptance_mode(args.full)
         print(smi)

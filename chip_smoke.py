@@ -74,12 +74,8 @@ Phases (any failure exits nonzero before the final line):
    ``DECOMPOSE_TOL``), a ``save_model`` -> ``load_model`` round trip
    (the same particle tensors) and ``device_trace`` around one
    ``predict_mvn`` (the trace names K4's ``cov_fwd_kernel``);
-8. mesh and beyond 2,048 points (``mesh_and_large_n``): phase 7's panel
-   and phase 6's ``n_hmc=1`` nowcast refresh (S = 100) under
-   ``make_mesh()`` and under a rehearsal mesh of 4 shards on cuda:0 (and
-   over every card when several are visible), K1/K2 asserted at shards x
-   the unsharded counts, ``lml_rows_sharded`` bitwise ``gp_lml_batched``,
-   every series under 0.2 and the panel median within 0.02 of phase 7's;
+8. every card and beyond 2,048 points (``cards_and_large_n``): every
+   kernel on every visible card bitwise cuda:0's (with several cards);
    K4/K5 at n = 2,208 and 4,096 against the float64 plain versions (8 and
    4 particles), timed at P = 200; the composed core's value and gradient
    at P = 200, n = 2,208 and 4,096 (where the particle budget binds) with
@@ -1455,6 +1451,7 @@ def _chunked_refresh(ngp, dy_ctx, n_scenarios=20, draws_per=20,
     import torch
 
     from nowcastautogp_tpu_torch import nowcast
+    from nowcastautogp_tpu_torch.ops import lml
 
     model, dates, obs, n0 = (dy_ctx[k] for k in ("model", "dates", "obs",
                                                  "n_train"))
@@ -1480,16 +1477,16 @@ def _chunked_refresh(ngp, dy_ctx, n_scenarios=20, draws_per=20,
         kernels=("K3", "K4", "K5"))
     peak = torch.cuda.max_memory_allocated() - base
     rows = chunk * model.num_particles
-    budget_row = nowcast._ROW_MATRICES * cap * cap * 4
+    budget_row = lml.budget_bytes(1, cap)
     out.update({"capacity": cap, "chunk": chunk, "peak_bytes": peak,
                 "peak_bytes_per_row": peak / rows,
                 "budget_bytes_per_row": budget_row,
-                "budget_bytes": nowcast._CHUNK_BYTES})
+                "budget_bytes": lml._CHUNK_BYTES})
     log(f"chunked refresh: {chunk} scenarios a chunk, peak {peak} B above "
         f"the model ({peak / rows:.0f} B a row, budget {budget_row} B)")
-    check(peak <= nowcast._CHUNK_BYTES,
+    check(peak <= lml._CHUNK_BYTES,
           f"chunked refresh: peak {peak} B over the budget "
-          f"{nowcast._CHUNK_BYTES} B")
+          f"{lml._CHUNK_BYTES} B")
     return out
 
 
@@ -1814,82 +1811,6 @@ def _fit_cost(ngp, models, n_train, proportion, n_mcmc, n_hmc, fit_s,
     return out
 
 
-def _mesh_panel(ngp, mesh, label):
-    """Phase 7's panel (20 series x 24 particles, device engine) under
-    ``mesh``: K1/K2 = shards x the unsharded counts, every series' log-CRPS
-    under the gate.  Returns its results and the per-series scores."""
-    import bench_torch
-
-    dates, datasets, invs, truths = bench_torch.panel_workload()
-    kw = bench_torch.panel_fit_kwargs()
-    f_dates = dates[len(datasets[0].y):]
-    n_steps = len(ngp.linear_schedule(len(datasets[0].y),
-                                      kw["smc_data_proportion"]))
-    per_shard = (n_steps * (1 + kw["n_mcmc"] * (
-        1 + kw["n_hmc"] * kw["hmc_config"].n_leapfrog)), n_steps)
-    _reset_counters()
-    _sync()
-    t0 = time.time()
-    models = ngp.fit_panel(datasets, seed=1, engine="device", mesh=mesh,
-                           **kw)
-    _sync()
-    fit_s = time.time() - t0
-    launches = _counters()
-    want = tuple(mesh.size * c for c in per_shard)
-    check((launches["K1"], launches["K2"]) == want,
-          f"mesh panel ({label}): K1/K2 {launches['K1']}/{launches['K2']}, "
-          f"expected {mesh.size} shards x {per_shard} = {want}")
-    fcs = ngp.forecast_panel(models, f_dates, 500, inv_transformations=invs,
-                             seed=2, mesh=mesh)
-    crps, _ = bench_torch.score_series(fcs, truths, DEVICE)
-    worst = int(np.argmax(crps))
-    check(max(crps) <= bench_torch.PANEL_GATE_MAX_LOG_CRPS,
-          f"mesh panel ({label}): series {worst} log-CRPS {crps[worst]:.4f}")
-    log(f"mesh panel ({label}, {mesh}): fit {fit_s:.3f} s, K1/K2 {want}, "
-        f"log-CRPS median {np.median(crps):.5f}, max {max(crps):.5f}")
-    return {"shards": mesh.size, "cards": len(set(mesh.devices)),
-            "fit_s": fit_s, "log_crps_median": float(np.median(crps)),
-            "log_crps_max": float(max(crps)), "launches": launches}
-
-
-def _sharded_lml_bitwise(ngp, mesh):
-    """``lml_rows_sharded`` against ``gp_lml_batched`` on the same 480 rows
-    at n = 160 (K2, each row alone): bitwise."""
-    import torch
-
-    from nowcastautogp_tpu_torch.ops import lml
-    from nowcastautogp_tpu_torch.parallel.sharding import lml_rows_sharded
-
-    types, params, _, mask, x, _ = _population(480, 160, seed=21,
-                                               n_active=150)
-    P, n = x.shape
-    gen = torch.Generator(DEVICE).manual_seed(5)
-    log_noise = -2.0 + 0.3 * torch.randn(P, generator=gen, device=DEVICE)
-    y = torch.randn((P, n), generator=gen, device=DEVICE)
-    with torch.no_grad():
-        ref = lml.gp_lml_batched(types, params, log_noise, x, y, mask)
-        got = lml_rows_sharded(types, params, log_noise, x, y, mask,
-                               mesh=mesh)
-    _sync()
-    check(_bitwise(got, ref), f"lml_rows_sharded on {mesh} differs from "
-          "gp_lml_batched at n = 160")
-    return True
-
-
-def _mesh_nowcast(ngp, wk_ctx, mesh, label):
-    """``forecast_with_nowcasts(mesh=)`` with the examples' ``n_hmc=1``
-    refresh on phase 3's model, S = 100: K2 twice and K1 6 times a
-    shard."""
-    model, ncs, f_dates, inv = (wk_ctx[k] for k in ("model", "ncs",
-                                                    "f_dates", "inv"))
-    return _nowcast_part(
-        f"mesh {label} (n_hmc=1, S={len(ncs)})", ngp, wk_ctx,
-        lambda: ngp.forecast_with_nowcasts(
-            model, ncs, f_dates, 20, inv_transformation=inv, n_hmc=1,
-            ess_threshold=0.5, mesh=mesh), want=(6 * mesh.size,
-                                                 2 * mesh.size))
-
-
 def _k45_beyond_2048():
     """K4 and K5 beyond the JAX kernel's 2048, held against their float64
     plain versions on a few particles (the interpreter holds about N
@@ -1982,7 +1903,7 @@ def _core_beyond_2048(n, P=200):
     check(bool(torch.isfinite(core).sum() > P // 2)
           and bool(torch.isfinite(p.grad).all()),
           f"core n={n}: values or gradients not finite")
-    budget = min(P, chunk) * lml._ROW_MATRICES * n * n * 4
+    budget = lml.budget_bytes(min(P, chunk), n)
     check(peak <= budget and peak <= lml._CHUNK_BYTES,
           f"core n={n}: peak {peak} B over the budget {budget} B")
     ms = _burst_ms(value_and_grad, 0, 2)
@@ -2042,7 +1963,7 @@ def _daily_long(ngp, seed=2, n_train=2190, horizon=28, draws=2000,
 
 def _every_card_kernels():
     """Every kernel launched on every visible card (under
-    ``torch.cuda.device``, as a mesh shard runs) and held bitwise to its
+    ``torch.cuda.device`` of that card) and held bitwise to its
     result on cuda:0: the kernels that take more than 48 KB of dynamic
     shared memory set its limit on each card (K1, K2, K3, K6a, K6b, K5's
     class-31 launch).  Returns the cards checked."""
@@ -2085,19 +2006,11 @@ def _every_card_kernels():
     return [0] + cards
 
 
-def mesh_and_large_n(wk_ctx, panel_median):
-    """Phase 8: the mesh, the LML beyond 2,048 points, and the flops.
+def cards_and_large_n():
+    """Phase 8: every card, and the LML beyond 2,048 points.
 
     * Every kernel on every visible card, bitwise cuda:0's (the shared
-      memory limit is set per card).  Phase 7's panel under
-      ``make_mesh()`` (every visible card: one on a one-card machine, the
-      unsharded calls) and under a rehearsal mesh of 4 shards on cuda:0
-      (the sharded code, the shards in turn); where
-      several cards are visible ``make_mesh()`` takes them all.  K1/K2 = shards x 3,650 /
-      10, every series under 0.2, the median within 0.02 of phase 7's.
-      ``lml_rows_sharded`` bitwise ``gp_lml_batched`` under each mesh.
-      Then ``forecast_with_nowcasts(mesh=)`` with the ``n_hmc=1`` refresh
-      on phase 3's model at S = 100 under each mesh.
+      memory limit is set per card).
     * K4/K5 at n = 2,208 and 4,096 against their float64 plain versions,
       timed at P = 200; the composed core's value and gradient at P = 200,
       n = 2,208 (one chunk) and n = 4,096 (the budget binds: 64 a chunk),
@@ -2105,35 +2018,10 @@ def mesh_and_large_n(wk_ctx, panel_median):
     """
     import nowcastautogp_tpu_torch as ngp
 
-    out = _mesh_part(ngp, wk_ctx, panel_median)
+    out = {"kernels_on_cards": _every_card_kernels()}
     out["k45_err"], out["k45_ms"], out["k45_bounds"] = _k45_beyond_2048()
     out["core"] = {f"n{n}": _core_beyond_2048(n) for n in (2208, 4096)}
     out["daily_long"] = _daily_long(ngp)
-    return out
-
-
-def _mesh_part(ngp, wk_ctx, panel_median):
-    """Phase 8's mesh half (``mesh_and_large_n``)."""
-    import torch
-
-    from nowcastautogp_tpu_torch.parallel.sharding import Mesh
-
-    meshes = [("make_mesh()", ngp.make_mesh()),
-              ("rehearsal 4 x cuda:0", Mesh(["cuda:0"] * 4))]
-    log(f"mesh: {torch.cuda.device_count()} card(s) visible; meshes "
-        f"{[str(m) for _, m in meshes]}")
-    out = {"cards_visible": torch.cuda.device_count(), "panel": {},
-           "nowcast": {}, "kernels_on_cards": _every_card_kernels()}
-    for label, mesh in meshes:
-        res = _mesh_panel(ngp, mesh, label)
-        check(abs(res["log_crps_median"] - panel_median) <= 0.02,
-              f"mesh panel ({label}): median {res['log_crps_median']:.5f} "
-              f"against phase 7's {panel_median:.5f}")
-        res["lml_bitwise"] = _sharded_lml_bitwise(ngp, mesh)
-        out["panel"][label] = res
-        out["nowcast"][label] = _mesh_nowcast(ngp, wk_ctx, mesh, label)
-    out["cards_used"] = max(r["cards"] for r in out["panel"].values())
-    log(f"mesh: cards used {out['cards_used']}")
     return out
 
 
@@ -2175,12 +2063,12 @@ def main():
     t0 = time.time()
     pn = panel_and_workflow(wk_ctx)
     phases["panel"] = time.time() - t0
+    del wk_ctx
     log(f"panel and workflow: {json.dumps(pn)}")
     t0 = time.time()
-    m8 = mesh_and_large_n(wk_ctx, pn["panel"]["log_crps_median"])
-    phases["mesh_large_n"] = time.time() - t0
-    del wk_ctx
-    log(f"mesh and beyond 2048: {json.dumps(m8)}")
+    m8 = cards_and_large_n()
+    phases["cards_large_n"] = time.time() - t0
+    log(f"every card and beyond 2048: {json.dumps(m8)}")
     ms.update(m8["k45_ms"])
     bounds.update(m8["k45_bounds"])
     for k in ("K4", "K5"):
@@ -2243,9 +2131,6 @@ def main():
                    "panel": pn["panel"]["launches"][k],
                    "acceptance": pn["acceptance"]["launches"][k],
                    "workflow": pn["tools"]["launches"][k],
-                   "mesh": sum(r["launches"][k] for part in ("panel",
-                                                              "nowcast")
-                               for r in m8[part].values()),
                    "beyond_2048": m8["daily_long"]["launches"][k]
                    + sum(c["launches"][k] for c in m8["core"].values())}
         kernels.append({
@@ -2259,7 +2144,7 @@ def main():
     print(json.dumps({"phase_s": phases, "kernel_ms": ms, "k1_walk": walk,
                       "bounds_ms": bounds, "weekly": wk, "daily": dy,
                       "pallas": pw, "nowcast": nc, "panel": pn,
-                      "mesh_large_n": m8}))
+                      "cards_large_n": m8}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

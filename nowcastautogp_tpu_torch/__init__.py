@@ -5,9 +5,8 @@ heap-encoded kernel trees, data-annealed SMC with host or device structure
 proposals and batched HMC, the forecaster (``forecast``, ``predict_mvn``,
 and the per-draw HMC refresh ``forecast_n_hmc``) and the nowcast forecast
 with its refresh branches; the multi-series panel (``fit_panel``,
-``forecast_panel``, ``panel_predict_mvn``), on one card or sharded over
-several (``make_mesh``, ``parallel/sharding.py``); and the
-workflow around them: CRPS/WIS scoring, hubverse quantile submissions,
+``forecast_panel``, ``panel_predict_mvn``) on one card; and the workflow
+around them: CRPS/WIS scoring, hubverse quantile submissions,
 vintaged data, the five-approach acceptance comparison
 (``run_acceptance``), additive decomposition, checkpoints, phase
 timers and spans (``recording``).  The masked GP log marginal
@@ -44,7 +43,6 @@ from .models.gp_model import (
 from .models.posterior import MvNormalMixture
 from .nowcast import create_nowcast_data, forecast_with_nowcasts
 from .parallel.panel import fit_panel, forecast_panel, panel_predict_mvn
-from .parallel.sharding import make_mesh
 from .tdata import TData, create_transformed_data
 from .transforms import get_transformations
 from .utils.data import VintagedData, load_vintaged_csv
@@ -68,5 +66,5 @@ __all__ = [
     "FLUSIGHT_QUANTILES", "quantile_submission", "write_submission_csv",
     "phase_report", "reset_phases", "device_trace", "recording",
     "save_model", "load_model", "VintagedData", "load_vintaged_csv",
-    "fit_panel", "forecast_panel", "panel_predict_mvn", "make_mesh",
+    "fit_panel", "forecast_panel", "panel_predict_mvn",
 ]

@@ -141,13 +141,13 @@ def _trajectory(potential, state, draws, prior_active, *, n_leapfrog,
 
 def _uses_graph(device_type: str, P: int, n: int) -> bool:
     """Whether ``run_hmc`` replays captured trajectories: on the card, where
-    one LML call's budget (``ops/lml.py``: ``_ROW_MATRICES`` (n, n) float32
-    planes a particle) is at most ``_GRAPH_BYTES``.  That holds the fused
-    core and the composed core within one chunk at the fits' sizes; the
-    chunked composed core, which checkpoints its chunks, and larger calls,
-    whose device time hides their launches, stay eager."""
-    return device_type == "cuda" and (
-        lml_ops._ROW_MATRICES * P * n * n * 4 <= _GRAPH_BYTES)
+    one LML call's budget (``ops/lml.py``'s ``budget_bytes``) is at most
+    ``_GRAPH_BYTES``.  That holds the fused core and the composed core
+    within one chunk at the fits' sizes; the chunked composed core, which
+    checkpoints its chunks, and larger calls, whose device time hides their
+    launches, stay eager."""
+    return (device_type == "cuda"
+            and lml_ops.budget_bytes(P, n) <= _GRAPH_BYTES)
 
 
 # ------------------------------------------------ the captured trajectories

@@ -6,9 +6,7 @@ and birth/death) are irregular and run on the host in numpy for all
 particles at once, drawing from the same ``numpy.random.Generator`` stream as
 the JAX package.  One batched call then evaluates every proposal's masked
 LML (K2 on the card), applies the MH accept, selects the surviving trees and
-params, and runs ``n_hmc`` HMC trajectories on the winners.  With a mesh of
-several shards each move runs one body a shard
-(``parallel/sharding.py::structure_move_sharded``).
+params, and runs ``n_hmc`` HMC trajectories on the winners.
 """
 
 from __future__ import annotations
@@ -101,25 +99,16 @@ def _structure_move_body(
 def mcmc_structure_sweep(
     rng, gen, host_types, params, log_noise, lml, x, y, mask,
     config: GPConfig, n_mcmc: int, n_hmc: int, hmc_cfg, jitter,
-    noise_mu, noise_sigma, infer_noise, eps_scale, mesh=None,
+    noise_mu, noise_sigma, infer_noise, eps_scale,
 ):
     """Run ``n_mcmc`` structure moves, each followed by ``n_hmc`` HMC
     trajectories.
 
     ``host_types`` is the host-side numpy mirror of the trees (the host owns
-    structure state so it can build the next proposal).  ``mesh``: a mesh
-    of more than one shard runs each move through
-    ``structure_move_sharded``, one body a shard.  Returns
+    structure state so it can build the next proposal).  Returns
     ``(host_types, params, log_noise, lml, mean accept rate, eps_scale)``.
     """
     dev = params.device
-    if mesh is not None and mesh.size > 1:
-        from ..parallel.sharding import structure_move_sharded
-
-        def move(*args, **kw):
-            return structure_move_sharded(*args, mesh=mesh, **kw)
-    else:
-        move = _structure_move_body
 
     def on_dev(a, dtype=torch.float32):
         return torch.as_tensor(a, dtype=dtype, device=dev)
@@ -130,18 +119,19 @@ def mcmc_structure_sweep(
         with span("mcmc/move"):
             types_prop, params_prop, log_h, pri_prop = propose_batch(
                 rng, host_types, readback(params), config)
-            accept, _, params, log_noise, lml, _, eps_scale = move(
-                on_dev(host_types, torch.int32),
-                on_dev(types_prop, torch.int32),
-                params, on_dev(params_prop),
-                tuple(map(on_dev, pri_old)), tuple(map(on_dev, pri_prop)),
-                on_dev(log_h), log_noise, lml, x, y, mask, gen, eps_scale,
-                n_hmc=n_hmc, n_leapfrog=hmc_cfg.n_leapfrog,
-                step_size=hmc_cfg.step_size,
-                step_jitter=hmc_cfg.step_size_jitter,
-                jitter=jitter, noise_mu=noise_mu, noise_sigma=noise_sigma,
-                infer_noise=infer_noise,
-            )
+            accept, _, params, log_noise, lml, _, eps_scale = (
+                _structure_move_body(
+                    on_dev(host_types, torch.int32),
+                    on_dev(types_prop, torch.int32),
+                    params, on_dev(params_prop),
+                    tuple(map(on_dev, pri_old)), tuple(map(on_dev, pri_prop)),
+                    on_dev(log_h), log_noise, lml, x, y, mask, gen, eps_scale,
+                    n_hmc=n_hmc, n_leapfrog=hmc_cfg.n_leapfrog,
+                    step_size=hmc_cfg.step_size,
+                    step_jitter=hmc_cfg.step_size_jitter,
+                    jitter=jitter, noise_mu=noise_mu, noise_sigma=noise_sigma,
+                    infer_noise=infer_noise,
+                ))
             acc_np = readback(accept)
             host_types = np.where(acc_np[:, None], types_prop,
                                   host_types).astype(np.int32)

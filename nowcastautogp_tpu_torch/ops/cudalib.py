@@ -9,9 +9,9 @@ use and an unchanged tree reuses it.
 
 Each C entry point launches on the calling thread's current CUDA device and
 sets its kernels' dynamic shared-memory limit before every launch (the
-attribute is per device), so one process may launch on several cards
-(``parallel/sharding.py``).  ``LaunchCounter`` keeps the wrappers' launch
-counts exact when host threads launch at once.
+attribute is per device), so one process may launch on several cards.
+``LaunchCounter`` keeps the wrappers' launch counts exact when host
+threads launch at once.
 """
 
 from __future__ import annotations

@@ -51,8 +51,8 @@ from .megalml import cholesky_nan
 __all__ = [
     "masked_kernel_matrix", "gp_lml_batched", "gp_predict_batch",
     "gp_predict_batch_rows", "sampling_cholesky", "lml_core",
-    "lml_core_composed", "composed_chunk", "InvCoreFn", "set_lml_backend",
-    "LOG_2PI", "DEFAULT_JITTER",
+    "lml_core_composed", "composed_chunk", "budget_bytes", "budget_rows",
+    "InvCoreFn", "set_lml_backend", "LOG_2PI", "DEFAULT_JITTER",
 ]
 
 LOG_2PI = 1.8378770664093453
@@ -68,6 +68,18 @@ DEFAULT_JITTER = 1e-5
 # (phase 8).
 _ROW_MATRICES = 8
 _CHUNK_BYTES = 32 * 2**30
+
+
+def budget_bytes(rows: int, cap: int) -> int:
+    """The bytes a batched call of ``rows`` rows at capacity ``cap`` is
+    budgeted: ``_ROW_MATRICES`` (cap, cap) float32 matrices a row."""
+    return rows * _ROW_MATRICES * cap * cap * 4
+
+
+def budget_rows(cap: int) -> int:
+    """The rows at capacity ``cap`` that one call's ``_CHUNK_BYTES`` holds:
+    0 where one row alone exceeds it."""
+    return _CHUNK_BYTES // budget_bytes(1, cap)
 
 _LML_BACKEND = "auto"
 
@@ -164,16 +176,17 @@ def lml_core_composed(types, params, diagv, mask, x, ym):
 
 
 def composed_chunk(n: int) -> int:
-    """Particles per composed-core call at capacity n: as many as
-    ``_CHUNK_BYTES`` holds at ``_ROW_MATRICES`` (n, n) float32 planes a
-    particle.  A particle that alone exceeds the budget raises."""
-    per_particle = _ROW_MATRICES * n * n * 4
-    if per_particle > _CHUNK_BYTES:
+    """Particles per composed-core call at capacity n: as many as one
+    call's budget holds (``budget_rows``).  A particle that alone exceeds
+    the budget raises."""
+    chunk = budget_rows(n)
+    if chunk == 0:
         raise ValueError(
-            f"one particle at capacity n={n} needs {per_particle / 2**30:.1f}"
-            f" GiB ({_ROW_MATRICES} (n, n) float32 planes), above the "
-            f"{_CHUNK_BYTES / 2**30:.0f} GiB budget of one call")
-    return _CHUNK_BYTES // per_particle
+            f"one particle at capacity n={n} needs "
+            f"{budget_bytes(1, n) / 2**30:.1f} GiB ({_ROW_MATRICES} (n, n) "
+            f"float32 planes), above the {_CHUNK_BYTES / 2**30:.0f} GiB "
+            "budget of one call")
+    return chunk
 
 
 def lml_core(types, params, diagv, mask, x, ym):

@@ -10,13 +10,6 @@ grid (each step conditions ``ceil(f_k * n_s)`` points of series ``s``), on
 capacity-bucketed schedule segments, and resampling is per series (host
 index math, one gather on the device).
 
-With a ``Mesh`` of several shards (``parallel/sharding.py``) the series
-axis is padded with duplicates until the rows divide the mesh, and every
-hot call -- reweight LML, device sweep, host move, HMC -- runs one body a
-shard, the shards in turn; the padded rows are trimmed from the
-result.  The state lives on the mesh's first device between calls.  A
-mesh of one shard runs the unsharded calls on its device.
-
 Spans (``utils/profiling.py``): ``api/fit_panel`` around the fit,
 ``panel/step`` around each schedule step, inside it ``panel/reweight``
 (the LML call and its reads back) and ``panel/resample``, and
@@ -27,7 +20,6 @@ Spans (``utils/profiling.py``): ``api/fit_panel`` around the fit,
 from __future__ import annotations
 
 import logging
-import math
 
 import numpy as np
 import torch
@@ -48,51 +40,28 @@ from ..models.posterior import MvNormalMixture
 from ..models.structures import prior_arrays, sample_particle
 from ..models.structures_device import ancestor_table, config_arrays
 from ..ops.lml import (
-    _CHUNK_BYTES, _ROW_MATRICES, DEFAULT_JITTER, gp_lml_batched,
+    DEFAULT_JITTER, budget_bytes, budget_rows, gp_lml_batched,
     gp_predict_batch_rows, sampling_cholesky,
 )
 from ..utils.apply import apply_elementwise
 from ..utils.dates import dates_to_float
 from ..utils.profiling import count, in_span, readback, span
-from .sharding import (
-    _on_shards, lml_rows_sharded, rejuvenation_sweep_sharded,
-    run_hmc_sharded,
-)
 
 __all__ = ["fit_panel", "panel_predict_mvn", "forecast_panel"]
 
 logger = logging.getLogger("nowcastautogp_tpu_torch")
 
 
-def _check_rows(R: int, cap: int, mesh=None):
-    """The rows one device holds must fit the byte budget of batched work
-    (``ops/lml.py``'s ``_CHUNK_BYTES`` at ``_ROW_MATRICES`` (cap, cap)
-    float32 matrices a row): K1 holds its workspaces for every row at
-    once.  With a mesh, a device holds its shards' rows."""
-    rows = R if mesh is None else math.ceil(R * mesh.device_share())
-    need = rows * _ROW_MATRICES * cap * cap * 4
-    if need > _CHUNK_BYTES:
+def _check_rows(R: int, cap: int):
+    """The panel's rows must fit the budget of one batched call
+    (``ops/lml.py``'s ``budget_rows``): K1 holds its workspaces for every
+    row at once."""
+    if R > budget_rows(cap):
         raise ValueError(
-            f"a panel of {R} rows ({rows} on one device) at capacity {cap} "
-            f"needs {need / 2**30:.1f} GiB, above the "
-            f"{_CHUNK_BYTES / 2**30:.0f} GiB row budget; fit fewer series "
-            "per call or shard them over more cards")
-
-
-def _pad_series(items, P: int, mesh):
-    """``items`` (one per series) padded with duplicates until S x P rows
-    divide the mesh (the JAX package's rule); returns (items, S_real)."""
-    S_real = len(items)
-    n_dev = mesh.size if mesh is not None else 1
-    if n_dev > 1 and (S_real * P) % n_dev != 0:
-        s_mult = n_dev // math.gcd(P, n_dev)
-        S = -(-S_real // s_mult) * s_mult
-        logger.info(
-            "padding %d series to %d so %d x %d rows divide the %d-shard "
-            "mesh (padded rows are trimmed from the result)",
-            S_real, S, S, P, n_dev)
-        items = items + [items[i % S_real] for i in range(S - S_real)]
-    return items, S_real
+            f"a panel of {R} rows at capacity {cap} needs "
+            f"{budget_bytes(R, cap) / 2**30:.1f} GiB, above the row budget "
+            f"of one call ({budget_rows(cap)} rows); fit fewer series per "
+            "call")
 
 
 @in_span("api/fit_panel")
@@ -101,7 +70,7 @@ def fit_panel(
     n_mcmc, n_hmc, config: GPConfig | None = None,
     hmc_config: HMCConfig | None = None, flat_threshold: float = 1e-3,
     adaptive_rejuvenation: bool = False, ess_fraction: float = 0.5,
-    seed: int | None = None, mesh=None, verbose: bool = False,
+    seed: int | None = None, verbose: bool = False,
     engine: str = "device", device="cuda",
 ) -> list[GPModel]:
     """Fit one GP particle ensemble per series, batched across the panel.
@@ -118,11 +87,6 @@ def fit_panel(
     draws (stabilising jitter, data orders, initial particles, resample
     indices) follow the JAX package's generator stream, so for one seed
     they are the JAX package's.
-
-    ``mesh``: a ``parallel.sharding.Mesh``; with several shards the series
-    are padded to a mesh multiple and every hot call runs one body a shard
-    (module docstring).  The state then lives on the mesh's first device,
-    which takes the place of ``device``.
     """
     if engine not in ("host", "device"):
         raise ValueError(f"engine={engine!r}; expected 'host' or 'device'")
@@ -131,13 +95,11 @@ def fit_panel(
     datasets = list(datasets)
     assert len(datasets) > 0, "datasets must not be empty"
     P = int(n_particles)
-    datasets, S_real = _pad_series(datasets, P, mesh)
     S = len(datasets)
     R = S * P
     config = config if config is not None else GPConfig()
     hmc_cfg = hmc_config or HMCConfig()
-    dev = torch.device(device) if mesh is None else mesh.devices[0]
-    sweep_mesh = mesh if mesh is not None and mesh.size > 1 else None
+    dev = torch.device(device)
 
     seed_seq = np.random.SeedSequence(seed)
     rng = np.random.default_rng(seed_seq)
@@ -149,7 +111,7 @@ def fit_panel(
     # ---- per-series normalization + shared-capacity padded buffers
     lens = [len(d.y) for d in datasets]
     cap = max(64, int(np.ceil(max(lens) / _PAD)) * _PAD)
-    _check_rows(R, cap, sweep_mesh)
+    _check_rows(R, cap)
     norms, x_rows_s, y_rows_s, orders, y_fits = [], [], [], [], []
     for d in datasets:
         t_raw = dates_to_float(d.ds)
@@ -221,14 +183,9 @@ def fit_panel(
                     np.float32))
                 with span("panel/reweight"):
                     with torch.no_grad():
-                        if sweep_mesh is not None:
-                            lml_new = lml_rows_sharded(
-                                types_d, params, log_noise, x_seg, y_seg,
-                                mask_b, mesh=sweep_mesh)
-                        else:
-                            lml_new = gp_lml_batched(
-                                types_d, params, log_noise, x_seg, y_seg,
-                                mask_b, DEFAULT_JITTER)
+                        lml_new = gp_lml_batched(
+                            types_d, params, log_noise, x_seg, y_seg, mask_b,
+                            DEFAULT_JITTER)
                     lml_new_np = readback(lml_new).astype(np.float64)
                     lml_old_np = readback(lml).astype(np.float64)
                     # sentinel guard: a particle broken on either side of the
@@ -259,19 +216,11 @@ def fit_panel(
                 count("panel/resampled_series", len(low))
                 do_rejuvenate = bool(low) or not adaptive_rejuvenation
                 if do_rejuvenate and use_device:
-                    if sweep_mesh is not None:
-                        types_d, params, log_noise, lml, _, eps_scale = (
-                            rejuvenation_sweep_sharded(
-                                types_d, params, log_noise, lml, x_seg, y_seg,
-                                mask_b, gen, eps_scale, cfg_arrays, anc,
-                                mesh=sweep_mesh, n_mcmc=n_mcmc, n_hmc=n_hmc,
-                                **hmc_kw))
-                    else:
-                        types_d, params, log_noise, lml, _, eps_scale = (
-                            rejuvenation_sweep(
-                                types_d, params, log_noise, lml, x_seg, y_seg,
-                                mask_b, gen, cfg_arrays, anc, n_mcmc=n_mcmc,
-                                n_hmc=n_hmc, eps_scale=eps_scale, **hmc_kw))
+                    types_d, params, log_noise, lml, _, eps_scale = (
+                        rejuvenation_sweep(
+                            types_d, params, log_noise, lml, x_seg, y_seg,
+                            mask_b, gen, cfg_arrays, anc, n_mcmc=n_mcmc,
+                            n_hmc=n_hmc, eps_scale=eps_scale, **hmc_kw))
                     host_types = readback(types_d).astype(np.int32)
                 elif do_rejuvenate and n_mcmc > 0:
                     (host_types, params, log_noise, lml, _,
@@ -279,21 +228,15 @@ def fit_panel(
                         rng, gen, host_types, params, log_noise, lml, x_seg,
                         y_seg, mask_b, config, n_mcmc, n_hmc, hmc_cfg,
                         DEFAULT_JITTER, noise_mu, noise_sigma, infer,
-                        eps_scale, mesh=sweep_mesh)
+                        eps_scale)
                     types_d = on_dev(host_types, torch.int32)
                 elif do_rejuvenate and n_hmc > 0:
                     mu, sg, act = (on_dev(a) for a in
                                    prior_arrays(host_types, config))
-                    if sweep_mesh is not None:
-                        params, log_noise, lml, _, eps_scale = run_hmc_sharded(
-                            types_d, params, log_noise, mu, sg, act, x_seg,
-                            y_seg, mask_b, gen, eps_scale, mesh=sweep_mesh,
-                            n_steps=n_hmc, **hmc_kw)
-                    else:
-                        params, log_noise, lml, _, eps_scale, _ = run_hmc(
-                            types_d, params, log_noise, mu, sg, act, x_seg,
-                            y_seg, mask_b, gen, n_steps=n_hmc,
-                            eps_scale=eps_scale, **hmc_kw)
+                    params, log_noise, lml, _, eps_scale, _ = run_hmc(
+                        types_d, params, log_noise, mu, sg, act, x_seg, y_seg,
+                        mask_b, gen, n_steps=n_hmc, eps_scale=eps_scale,
+                        **hmc_kw)
             step_i += 1
             if verbose:
                 logger.info("panel SMC step %d/%d: n=%d cap=%d resampled "
@@ -308,7 +251,7 @@ def fit_panel(
         lml_np = lml.cpu().numpy()
         scale_np = eps_scale.cpu().numpy()
     models = []
-    for s, d in enumerate(datasets[:S_real]):
+    for s, d in enumerate(datasets):
         sl = slice(s * P, (s + 1) * P)
         t0, t_scale, y_mean, y_std = norms[s]
         sub_seed = seed_seq.generate_state(2 + s)[-1]
@@ -335,10 +278,8 @@ def fit_panel(
     return models
 
 
-def _panel_predict_rows(models, forecast_dates, *, include_noise, mesh=None):
-    """One batched predictive build over the panel's S x P flattened rows
-    (with a mesh of several shards, one build a shard on the series padded
-    to a mesh multiple).
+def _panel_predict_rows(models, forecast_dates, *, include_noise):
+    """One batched predictive build over the panel's S x P flattened rows.
 
     Returns (mu, F, w) as float64 numpy on the ORIGINAL y scale of each
     series: ``mu`` (S, P, nq) predictive means, ``F`` (S, P, nq, nq) PSD
@@ -350,10 +291,8 @@ def _panel_predict_rows(models, forecast_dates, *, include_noise, mesh=None):
     P = models[0].num_particles
     assert all(m.num_particles == P for m in models), (
         "panel forecast requires a shared particle count")
-    shard_mesh = mesh if mesh is not None and mesh.size > 1 else None
-    models, S_real = _pad_series(models, P, shard_mesh)
     S = len(models)
-    dev = models[0].device if mesh is None else mesh.devices[0]
+    dev = models[0].device
     dates = list(forecast_dates)
     nq = len(dates)
     cap = max(int(m._cap) for m in models)
@@ -382,38 +321,30 @@ def _panel_predict_rows(models, forecast_dates, *, include_noise, mesh=None):
     rows = (types, torch.cat(params_l), torch.cat(noise_l), rep(x_rows),
             rep(y_rows), rep(m_rows), rep(xs_rows))
 
-    def build(*a):
-        with torch.no_grad():
-            mu, cov = gp_predict_batch_rows(*a, DEFAULT_JITTER, include_noise)
-            return readback(mu), readback(sampling_cholesky(cov))
+    with torch.no_grad():
+        mu, cov = gp_predict_batch_rows(*rows, DEFAULT_JITTER, include_noise)
+        mu, F = readback(mu), readback(sampling_cholesky(cov))
 
-    if shard_mesh is None:
-        mu, F = build(*rows)
-    else:
-        mu, F = (np.concatenate(t)
-                 for t in zip(*_on_shards(shard_mesh, build, rows)))
-
-    mu = mu.astype(np.float64).reshape(S, P, nq)[:S_real]
-    F = F.astype(np.float64).reshape(S, P, nq, nq)[:S_real]
-    y_mean = np.asarray([m._y_mean for m in models[:S_real]])[:, None, None]
-    y_std = np.asarray([m._y_std for m in models[:S_real]])[:, None, None]
+    mu = mu.astype(np.float64).reshape(S, P, nq)
+    F = F.astype(np.float64).reshape(S, P, nq, nq)
+    y_mean = np.asarray([m._y_mean for m in models])[:, None, None]
+    y_std = np.asarray([m._y_std for m in models])[:, None, None]
     mu = y_mean + y_std * mu
     F = y_std[..., None] * F
-    return mu, F, np.stack(w_rows[:S_real])
+    return mu, F, np.stack(w_rows)
 
 
-def panel_predict_mvn(models, forecast_dates, *, include_noise: bool = True,
-                      mesh=None) -> list[MvNormalMixture]:
+def panel_predict_mvn(models, forecast_dates, *,
+                      include_noise: bool = True) -> list[MvNormalMixture]:
     """``predict_mvn`` for a whole panel in one batched predictive build.
 
     Equivalent per series to ``predict_mvn(models[s], forecast_dates)``
     but assembled as one S x P row-flattened call (one K4 launch for
-    K(x, x) on the card; with ``mesh``, one a shard).  Returns one mixture
-    per series.
+    K(x, x) on the card).  Returns one mixture per series.
     """
     models = list(models)
     mu, F, w = _panel_predict_rows(models, list(forecast_dates),
-                                   include_noise=include_noise, mesh=mesh)
+                                   include_noise=include_noise)
     out = []
     for s in range(len(models)):
         cov = np.einsum("pij,pkj->pik", F[s], F[s])
@@ -423,7 +354,7 @@ def panel_predict_mvn(models, forecast_dates, *, include_noise: bool = True,
 
 def forecast_panel(models, forecast_dates, forecast_draws: int, *,
                    inv_transformations=None, include_noise: bool = True,
-                   mesh=None, seed: int | None = None) -> list[np.ndarray]:
+                   seed: int | None = None) -> list[np.ndarray]:
     """Sample forecasts for every series of a fitted panel at once.
 
     The panel analog of :func:`..forecasting.forecast` (no per-draw HMC):
@@ -431,8 +362,7 @@ def forecast_panel(models, forecast_dates, forecast_draws: int, *,
     then per-series mixture draws with numpy, as the JAX package draws
     them.  ``inv_transformations``: one callable shared by all series, or a
     sequence of per-series callables.  Returns a list of ``(n_dates,
-    forecast_draws)`` arrays.  ``mesh`` shards the predictive build as in
-    ``panel_predict_mvn``.
+    forecast_draws)`` arrays.
     """
     models = list(models)
     S = len(models)
@@ -447,8 +377,7 @@ def forecast_panel(models, forecast_dates, forecast_draws: int, *,
         invs = list(inv_transformations)
         assert len(invs) == S, "need one inverse transformation per series"
 
-    mu, F, w = _panel_predict_rows(models, dates, include_noise=include_noise,
-                                   mesh=mesh)
+    mu, F, w = _panel_predict_rows(models, dates, include_noise=include_noise)
     rng = np.random.default_rng(seed)
     out = []
     for s in range(S):

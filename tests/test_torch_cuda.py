@@ -787,7 +787,7 @@ def test_device_engine_on_the_card(dev):
 
 def test_every_kernel_on_every_card(dev):
     """Each kernel launched on every visible card, under
-    ``torch.cuda.device`` as a mesh shard launches, gives cuda:0's bits:
+    ``torch.cuda.device`` of that card, gives cuda:0's bits:
     the kernels with more than 48 KB of dynamic shared memory (K1, K2,
     K3, K6a, K6b, K5's class-31 launch) set its limit on each card."""
     if torch.cuda.device_count() < 2:

@@ -4,13 +4,18 @@ Structures (prior sampling, prior arrays, the three proposals through
 ``propose_batch``), transforms, data containers, dates, schedules and
 resampling run numpy in both packages, so for the same numpy seed they must
 return identical arrays.  Also checks that importing the port loads neither
-jax nor the JAX package.
+jax nor the JAX package, and that the kernels' launch counters stay exact
+when several host threads launch at once: a test forces the interpreter to
+switch threads between the bytecodes of every bump, which loses counts from
+any unsynchronised read-modify-write.
 """
 
 import datetime as dt
 import re
 import subprocess
 import sys
+import threading
+import time
 import warnings
 from pathlib import Path
 
@@ -36,6 +41,7 @@ from nowcastautogp_tpu_torch.eval import crps, families
 from nowcastautogp_tpu_torch.inference import resample, schedule
 from nowcastautogp_tpu_torch.inference import structure_mcmc
 from nowcastautogp_tpu_torch.models import config, structures
+from nowcastautogp_tpu_torch.ops import cudalib, megalml
 from nowcastautogp_tpu_torch.utils import dates
 
 torch.set_num_threads(1)
@@ -213,6 +219,49 @@ def test_import_loads_no_jax():
     for path in [*PKG.rglob("*.py"), *scripts]:
         for line in path.read_text().splitlines():
             assert not banned.match(line), (path, line)
+
+
+def test_launch_counts_are_exact_under_threads():
+    """Eight threads (more than this box's cores) bump K1's counter while
+    a trace hook hands the interpreter lock to another thread between
+    every two bytecodes of a bump: an unsynchronised ``+=`` loses counts
+    there; the counter must not."""
+    n_threads, n_bumps = 8, 100
+    code = cudalib.LaunchCounter.bump.__code__
+
+    def tracer(frame, event, arg):
+        if frame.f_code is code:
+            frame.f_trace_opcodes = True
+            return yield_lock
+        return None
+
+    def yield_lock(frame, event, arg):
+        if event == "opcode":
+            time.sleep(0)
+        return yield_lock
+
+    def worker():
+        for _ in range(n_bumps):
+            megalml._LAUNCHES.bump("K1_LAUNCHES")
+
+    megalml.reset_launch_counts()
+    interval = sys.getswitchinterval()
+    threading.settrace(tracer)
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        threading.settrace(None)
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert megalml.K1_LAUNCHES == n_threads * n_bumps
+    assert megalml.K2_LAUNCHES == 0
+    megalml.reset_launch_counts()
+    assert megalml.K1_LAUNCHES == 0
 
 
 def test_failed_kernel_build_stops_the_other_compilers(tmp_path, monkeypatch):

@@ -55,7 +55,7 @@ from nowcastautogp_tpu.inference import resample as jresample
 from nowcastautogp_tpu.ops import lml as jlml
 from nowcastautogp_tpu_torch import nowcast
 from nowcastautogp_tpu_torch.models.gp_model import GPModel
-from nowcastautogp_tpu_torch.ops import forecast_scan
+from nowcastautogp_tpu_torch.ops import forecast_scan, lml
 
 torch.set_num_threads(1)
 
@@ -330,7 +330,7 @@ def test_scenario_chunks_keep_the_contract(state, monkeypatch):
         calls.append([float(nc.y[-1]) for nc in ncs])
         return batched(model, ncs, *args, **kw)
 
-    monkeypatch.setattr(nowcast, "_CHUNK_BYTES", 1)
+    monkeypatch.setattr(lml, "_CHUNK_BYTES", 1)
     monkeypatch.setattr(nowcast, "_forecast_with_nowcasts_batched",
                         recording)
     out = ngp.forecast_with_nowcasts(pm, shared, f_dates, D, n_hmc=1)

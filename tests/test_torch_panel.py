@@ -33,11 +33,9 @@ from _session_once import once_per_session
 import nowcastautogp_tpu as jngp
 import nowcastautogp_tpu_torch as ngp
 from nowcastautogp_tpu.parallel import panel as jpanel
-from nowcastautogp_tpu_torch import nowcast
 from nowcastautogp_tpu_torch.models.gp_model import GPModel
 from nowcastautogp_tpu_torch.ops import lml
 from nowcastautogp_tpu_torch.parallel import panel
-from nowcastautogp_tpu_torch.parallel.sharding import Mesh
 
 torch.set_num_threads(1)
 
@@ -195,36 +193,10 @@ def test_forecast_panel_draws_bitwise_on_jax_moments(jax_refs, monkeypatch):
         np.testing.assert_array_equal(g, r)
 
 
-def test_mesh_raises(jax_refs):
-    """A mesh of one device runs the unsharded calls on that device: the
-    same fit, predictive and draws as without a mesh."""
-    mesh = Mesh(["cpu"])
-    plain = ngp.fit_panel(_datasets(ngp), n_mcmc=0, n_hmc=0, device="cpu",
-                          **_kw(ngp))
-    meshed = ngp.fit_panel(_datasets(ngp), n_mcmc=0, n_hmc=0, mesh=mesh,
-                           **_kw(ngp))
-    for a, b in zip(plain, meshed):
-        da, db = a.to_dict(), b.to_dict()
-        for key in ("node_types", "params", "log_noise", "lml", "log_weight",
-                    "generator_state"):
-            np.testing.assert_array_equal(da[key], db[key], err_msg=key)
-        assert b.device == torch.device("cpu")
-    pmodels = _carried(jax_refs["states"])
-    for a, b in zip(ngp.panel_predict_mvn(pmodels, _forecast_dates()),
-                    ngp.panel_predict_mvn(pmodels, _forecast_dates(),
-                                          mesh=mesh)):
-        np.testing.assert_array_equal(a.means, b.means)
-        np.testing.assert_array_equal(a.covs, b.covs)
-    for a, b in zip(ngp.forecast_panel(pmodels, _forecast_dates(), 4, seed=1),
-                    ngp.forecast_panel(pmodels, _forecast_dates(), 4, seed=1,
-                                       mesh=mesh)):
-        np.testing.assert_array_equal(a, b)
-
-
 def test_rows_beyond_the_chunk_budget_raise(monkeypatch):
     """The panel's S x P rows are held to the nowcast's row budget."""
-    monkeypatch.setattr(panel, "_CHUNK_BYTES", nowcast._ROW_MATRICES * 64
-                        * 64 * 4 * (len(LENS) * P - 1))
+    monkeypatch.setattr(lml, "_CHUNK_BYTES",
+                        lml.budget_bytes(len(LENS) * P - 1, 64))
     with pytest.raises(ValueError, match="row budget"):
         ngp.fit_panel(_datasets(ngp), n_mcmc=0, n_hmc=0, device="cpu",
                       **_kw(ngp))
